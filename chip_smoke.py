@@ -6,24 +6,41 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure raises; nothing falls back to the CPU):
 1. device: ``nvidia-smi`` name and power limit, precision policy, CUDA check;
-2. build: compile ``ov2slam_tpu_torch/csrc/lk_iterate.cu`` with nvcc;
-3. kernel: ``lk_iterate`` against its plain PyTorch version on the card, on
-   seeded inputs at the slice's shapes, with CUDA-event timings;
-4. slice: a 60-frame 752x480 synthetic stereo sequence through
+2. build: compile ``csrc/lk_iterate.cu`` and ``csrc/klt_track.cu`` with one
+   nvcc each, started together, and print ptxas' registers, shared memory
+   and spills;
+3. kernel lk_iterate: the per-chunk LK loop against its plain PyTorch
+   version on the card, on seeded inputs at the slice's shapes; device time
+   by CUDA-graph replay;
+4. kernel klt_track: the fused forward-backward KLT against
+   ``fb_klt_tracking_plain`` on the card, on two rendered 752x480 frames at
+   N = 192 and 320 (temporal pair with prior jitter 0 and 1.5 px; stereo
+   pair without gradient pyramids); then, in turns on the same inputs, the
+   kernel by CUDA-graph replay, the whole ``fb_klt_tracking`` call and the
+   per-chunk path (the plain glue around the ``lk_iterate`` kernel) by host
+   clock;
+5. slice: a 60-frame 752x480 synthetic stereo sequence through
    ``SlamSystem.process_stereo`` on the card, trajectory files written, ATE
-   checked, and the LK launch count read around every frame.
+   checked, and the kernels' launch counts read around every frame (one
+   ``klt_track`` launch per tracking-only frame, at least one in the first
+   keyframe's stereo matching).
 
-The last two lines of standard output are a JSON object describing the
-kernel and ``{"ok": true, "device": {...}}``.
+The last three lines of standard output are the card's ``nvidia-smi`` name
+and power limit, a JSON object describing the kernels, and
+``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --profile DIR`` also runs the first 20 frames of the
-slice again under ``torch.profiler``, prints a summary and writes the full
-tables to ``DIR/torch_profile_slice.txt``.
+``python3 chip_smoke.py --profile DIR`` also runs the slice before and after
+the fused kernel, in turns (fused, per-chunk, fused, per-chunk; frames
+1-59 each), and frames 1-20 of each under ``torch.profiler``: fps, device
+idle share and kernel launches per frame, with the full tables in
+``DIR/torch_profile_slice_<path>.txt``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -40,24 +57,39 @@ sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 from ov2slam_tpu_torch import device as device_mod  # noqa: E402
 from ov2slam_tpu_torch.config import SlamParams  # noqa: E402
 from ov2slam_tpu_torch.io.trajectories import ate_rmse  # noqa: E402
-from ov2slam_tpu_torch.ops import _build, lk  # noqa: E402
+from ov2slam_tpu_torch.ops import _build, klt, lk  # noqa: E402
 from ov2slam_tpu_torch.ops import image as im  # noqa: E402
 from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
+import klt_inputs  # noqa: E402
 import synthetic_np as syn  # noqa: E402
 
 WS, WIN, EPS, MARGIN = 20, 9, 0.01, 4.0
 N_FRAMES, STEP, YAW = 60, 0.03, 0.0015
 # kernel vs plain on the card: both run float32 GN steps and differ only in
-# summation order. Points that stopped the same way in both (converged, or
-# paused at the margin) must agree to 2e-3 px; every point to eps: a point
-# that converged one step earlier in one version differs by that last step,
-# which is below eps, and a point still iterating when the budget ends has
-# not converged (it oscillates) — the rule of tests/test_torch_lk.py.
-PTS_TOL, MASK_AGREE = 2e-3, 0.99
+# summation order. lk_iterate: points that stopped the same way in both
+# (converged, or paused at the margin) must agree to 2e-3 px; every point
+# to eps: a point that converged one step earlier in one version differs by
+# that last step, which is below eps, and a point still iterating when the
+# budget ends has not converged (it oscillates) — the rule of
+# tests/test_torch_lk.py. klt_track: status equal on 99% of points, points
+# to 2e-3 px and error to 1e-3 where both tracked (LK resolves 0.01 px).
+PTS_TOL, MASK_AGREE, ERR_TOL = 2e-3, 0.99, 1e-3
+KLT_CASES = (("temporal", 0.0), ("temporal", 1.5), ("stereo", 0.0))
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
+# FLOP/s outside the tensor cores. One GN step costs ~30 FLOPs per patch
+# sample (four hat weights, two taps per row, the blend, the residual and
+# two multiply-adds).
+HBM_BPS, F32_FLOPS, FLOPS_PER_SAMPLE = 3.35e12, 67e12, 30
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def lk_case(N: int, seed: int, dev):
@@ -114,8 +146,122 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device time per call: `reps` calls captured in one CUDA graph, the
+    replay timed with CUDA events, so the host's per-call work (argument
+    checks, allocations, the ctypes call) is left out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Wall time per call, each call synchronised (the latency a frame
+    sees), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / reps
+
+
+def recording_lk(calls: list):
+    """lk.lk_iterate_plain run one GN step at a time (the same result),
+    recording what this run's data needs: per call, its window origins and,
+    per step, the points (N, 2) and the active mask (N,) at which the step
+    samples its patch."""
+    def fn(*args, win, n_iters, eps, margin):
+        *head, p, a = args
+        cv = torch.zeros_like(a)
+        steps = []
+        calls.append((head[8], steps))
+        for _ in range(n_iters):
+            if not bool(a.any()):
+                break
+            steps.append((p, a))
+            p, a, c = lk.lk_iterate_plain(*head, p, a, win=win, n_iters=1,
+                                          eps=eps, margin=margin)
+            cv = cv | c
+        return p, a, cv
+    return fn
+
+
+def steps_per_point(calls: list) -> torch.Tensor:
+    """(N,) GN steps each point took over the recorded calls."""
+    return sum((a.long() for _, steps in calls for _, a in steps),
+               torch.zeros((), dtype=torch.long))
+
+
+def mark_patches(mask, q, o, sel, win: int, ws: int) -> int:
+    """Mark in `mask` (a plane's shape) the pixels that the win x win
+    hat-weighted patches centred at q (N, 2) read inside their ws x ws
+    windows at origins o (N, 2), for the points in `sel`: per axis from
+    floor(q - o - r) to ceil(q - o - r + win - 1), r = (win - 1) / 2,
+    clipped to the window (samples outside it are zero). Returns the
+    number of patches."""
+    q, o = q[sel], o[sel].long()
+    r = (win - 1) / 2.0
+    lo = torch.floor(q - o - r).long().clamp(min=0)
+    hi = torch.ceil(q - o - r + win - 1).long().clamp(max=ws - 1)
+    ar = torch.arange(win + 1, device=q.device)
+    xs, ys = lo[:, 0, None] + ar, lo[:, 1, None] + ar           # (M, win + 1)
+    keep = (ys <= hi[:, 1, None])[:, :, None] & (xs <= hi[:, 0, None])[:, None, :]
+    rows = (o[:, 1, None] + ys)[:, :, None].expand_as(keep)
+    cols = (o[:, 0, None] + xs)[:, None, :].expand_as(keep)
+    mask[rows[keep], cols[keep]] = True
+    return q.shape[0]
+
+
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" | "operations"): the larger of the two least times."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BPS, 1e3 * ops / F32_FLOPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lk_bound(args, kw):
+    """Least time of one lk_iterate call on these inputs. Bytes: the window
+    pixels its GN steps' patches read (per point, the union of the steps'
+    footprints), each read once, the template, gradients and per-point
+    inputs of every point, and the outputs. Operations: the GN steps this
+    input needs (recorded from the plain version's run)."""
+    calls = []
+    recording_lk(calls)(*args, **kw)
+    o_rec, steps = calls[0]
+    N, ws, P = args[0].shape[0], args[0].shape[1], kw["win"] ** 2
+    # the N windows stacked in one (N * ws, ws) plane
+    ar = torch.arange(N, device=o_rec.device)
+    shift = torch.stack([torch.zeros_like(ar), ws * ar], -1)
+    mask = torch.zeros((N * ws, ws), dtype=torch.bool, device=o_rec.device)
+    for p, a in steps:
+        mark_patches(mask, p - o_rec + shift, shift, a, kw["win"], ws)
+    n_steps = sum(int(a.sum()) for _, a in steps)
+    nbytes = (4 * int(mask.sum()) + N * ((3 * P + 4) * 4 + 8 + 8 + 8 + 1)
+              + N * (8 + 1 + 1))
+    ops = n_steps * P * FLOPS_PER_SAMPLE
+    return bound(nbytes, ops) + (nbytes, ops, calls)
+
+
 def phase_kernel(dev):
-    """Kernel vs plain at N in {192, 320} and n_iters in {1, 10, 30}."""
+    """lk_iterate vs plain at N in {192, 320} and n_iters in {1, 10, 30}."""
     worst = 0.0
     times = {}
     for N in (192, 320):
@@ -139,13 +285,142 @@ def phase_kernel(dev):
                     f"active {a_agree:.4f} converged {c_agree:.4f} "
                     f"(need {MASK_AGREE})")
             worst = max(worst, err_all)
-            k_ms = cuda_ms(lambda: lk.lk_iterate(*args, **kw), 200)
+            k_ms = graph_ms(lambda: lk.lk_iterate(*args, **kw))
             p_ms = cuda_ms(lambda: lk.lk_iterate_plain(*args, **kw), 20)
-            times[(N, n_iters)] = (k_ms, p_ms)
-            log(f"[kernel] N={N} n_iters={n_iters}: max |dp| {err_all:.3g} px "
-                f"(stopped alike {err_same:.3g}), active agree {a_agree:.4f}, "
-                f"converged agree {c_agree:.4f}; kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms")
+            b_ms, b_by, nbytes, ops, calls = lk_bound(args, kw)
+            per_point = steps_per_point(calls)
+            times[(N, n_iters)] = (k_ms, p_ms, b_ms, b_by)
+            log(f"[kernel lk_iterate] N={N} n_iters={n_iters}: max |dp| "
+                f"{err_all:.3g} px (stopped alike {err_same:.3g}), active "
+                f"agree {a_agree:.4f}, converged agree {c_agree:.4f}; device "
+                f"{k_ms:.5f} ms (graph replay), plain {p_ms:.4f} ms; bound "
+                f"{b_ms:.6f} ms by {b_by} ({nbytes} B; {ops} FLOP, "
+                f"{int(per_point.sum())} GN steps, at most "
+                f"{int(per_point.max())} for one point)")
+    torch.cuda.synchronize()
+    return worst, times
+
+
+def klt_window_origins(q, shape, ws: int):
+    """ops/klt.py's window origins: clamp(round(q) - ws // 2) per axis."""
+    H, W = shape
+    o = torch.round(q).long() - ws // 2
+    return torch.stack([o[:, 0].clamp(0, W - ws), o[:, 1].clamp(0, H - ws)], -1)
+
+
+def klt_bound(args, kw):
+    """Least time of one fb_klt_tracking call on these inputs, from the
+    plain version's run. Bytes: the pixels its patches read, each read once
+    (per plane, the union of the footprints of the template patches, of
+    every GN step's patch and of the level-0 error patch), plus the
+    per-point inputs and outputs. Operations: those patches' samples.
+    Planes are named: prev/next image and gradients per level."""
+    p0, p1, pts, prior, valid = args
+    N, nl, win = pts.shape[0], kw["nlevels"], kw["win"]
+    ws, P, n_chunks, max_err = win + 11, win * win, 3, 30.0
+    calls = []
+    klt.fb_klt_tracking_plain(*args, **kw, lk_fn=recording_lk(calls))
+    fwd = klt.pyr_klt(list(p0), list(p1), pts, prior, valid, nl, win,
+                      prev_grad_pyr=kw.get("prev_grad_pyr"))
+    good = fwd.status & (fwd.error < max_err)
+    masks = {}
+
+    def mark(name, lvl, q, o, sel):
+        shape = p0[lvl].shape
+        m = masks.setdefault((name, lvl), torch.zeros(
+            shape, dtype=torch.bool, device=pts.device))
+        return mark_patches(m, q, o, sel, win, ws)
+
+    def in_bounds(q, lvl):
+        H, W = p0[lvl].shape
+        h = (win - 1) / 2.0
+        return ((q[:, 0] >= h) & (q[:, 0] < W - h)
+                & (q[:, 1] >= h) & (q[:, 1] < H - h))
+
+    patches = 0
+    # templates: per level the points it tracks; at level 0 every point's
+    # image patch too (the error is every point's output)
+    for lvl in range(nl + 1):
+        q = pts / 2.0 ** lvl
+        o = klt_window_origins(q, p0[lvl].shape, ws)
+        track = valid & in_bounds(q, lvl)
+        patches += mark("prev", lvl, q, o, track | (lvl == 0))
+        patches += mark("prev_gx", lvl, q, o, track) + mark("prev_gy", lvl, q, o, track)
+    # the backward template at the forward points, for the good ones
+    o = klt_window_origins(fwd.points, p0[0].shape, ws)
+    track = good & in_bounds(fwd.points, 0)
+    for name in ("next", "next_gx", "next_gy"):
+        patches += mark(name, 0, fwd.points, o, track)
+    # every GN step's patch, in the plain version's call order
+    planes = ([("next", nl)] * n_chunks + [("next", l) for l in range(nl - 1, -1, -1)]
+              + [("prev", 0)] * min(n_chunks, 2))
+    assert len(calls) == len(planes), (len(calls), len(planes))
+    for (name, lvl), (o_call, steps) in zip(planes, calls):
+        for p, a in steps:
+            patches += mark(name, lvl, p, o_call, a)
+    # the error: every forward point in its last level-0 window
+    o_err = calls[len(planes) - min(n_chunks, 2) - 1][0]
+    patches += mark("next", 0, fwd.points, o_err, torch.ones_like(valid))
+    nbytes = 4 * sum(int(m.sum()) for m in masks.values()) + N * (8 + 8 + 1 + 8 + 1 + 4)
+    ops = patches * P * FLOPS_PER_SAMPLE
+    return bound(nbytes, ops) + (nbytes, ops, calls)
+
+
+def per_chunk_klt():
+    """fb_klt_tracking_plain around the lk_iterate kernel: the per-chunk
+    path that the fused kernel replaced, for before/after timings."""
+    return functools.partial(klt.fb_klt_tracking_plain, lk_fn=lk.lk_iterate)
+
+
+def phase_klt(dev, frames):
+    """klt_track vs fb_klt_tracking_plain on the card, then its timings."""
+    worst = 0.0
+    for N in (192, 320):
+        for pair, jitter in KLT_CASES:
+            args, kw = klt_inputs.klt_case(frames, N, pair, jitter, dev)
+            r = klt.fb_klt_tracking(*args, **kw)
+            rp = klt.fb_klt_tracking_plain(*args, **kw)
+            torch.cuda.synchronize()
+            agree = float((r.status == rp.status).float().mean())
+            both = r.status & rp.status
+            dp = float((r.points - rp.points).abs()[both].max()) if bool(both.any()) else 0.0
+            de = float((r.error - rp.error).abs()[both].max()) if bool(both.any()) else 0.0
+            log(f"[kernel klt_track] N={N} {pair} jitter {jitter}: tracked "
+                f"{int(r.status.sum())} / plain {int(rp.status.sum())} of "
+                f"{int(args[4].sum())} valid, status agree {agree:.4f}, max "
+                f"|dp| {dp:.3g} px, max |derr| {de:.3g} where both tracked")
+            if agree < MASK_AGREE or dp > PTS_TOL or de > ERR_TOL or int(both.sum()) < 100:
+                raise AssertionError(
+                    f"klt_track N={N} {pair} jitter {jitter}: status agree "
+                    f"{agree:.4f} (need {MASK_AGREE}), |dp| {dp:.3g} (tol "
+                    f"{PTS_TOL}), |derr| {de:.3g} (tol {ERR_TOL}), "
+                    f"{int(both.sum())} tracked by both")
+            worst = max(worst, dp)
+
+    # timings at the slice's shapes (N = kp_cap = 192): the front end's
+    # tracking call and the mapper's stereo call, in turns on one card
+    times = {}
+    for pair, jitter in (("temporal", 1.5), ("stereo", 0.0)):
+        args, kw = klt_inputs.klt_case(frames, 192, pair, jitter, dev)
+        gkw = dict(kw)
+        if pair == "stereo":     # the kernel alone: gradients made here once
+            gkw["prev_grad_pyr"] = [im.scharr_gradients(a) for a in args[0]]
+            gkw["next_grad_pyr"] = [im.scharr_gradients(a) for a in args[1]]
+        k_ms = graph_ms(lambda: klt.fb_klt_tracking(*args, **gkw))
+        fused = lambda: klt.fb_klt_tracking(*args, **kw)          # noqa: E731
+        chunked = lambda: per_chunk_klt()(*args, **kw)            # noqa: E731
+        turns = [host_ms(fused, 50), host_ms(chunked, 20),
+                 host_ms(fused, 50), host_ms(chunked, 20)]
+        p_ms = host_ms(lambda: klt.fb_klt_tracking_plain(*args, **kw), 3)
+        b_ms, b_by, nbytes, ops, calls = klt_bound(args, gkw)
+        per_point = steps_per_point(calls)
+        times[pair] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[kernel klt_track] timing N=192 {pair}: device {k_ms:.5f} ms "
+            f"(graph replay); whole call {turns[0]:.4f} / {turns[2]:.4f} ms "
+            f"vs per-chunk path {turns[1]:.4f} / {turns[3]:.4f} ms (host "
+            f"clock, in turns); plain {p_ms:.3f} ms; bound {b_ms:.6f} ms by "
+            f"{b_by} ({nbytes} B; {ops} FLOP, {int(per_point.sum())} GN "
+            f"steps, at most {int(per_point.max())} for one point)")
     torch.cuda.synchronize()
     return worst, times
 
@@ -160,18 +435,18 @@ def phase_slice(dev):
     d["doepipolar"] = 0
     slam = SlamSystem(SlamParams.from_dict(d), device=dev)
     est, launches, is_kf, dts = [], [], [], []
-    lk.LAUNCHES = 0
+    klt.LAUNCHES = lk.LAUNCHES = 0
     for i in range(N_FRAMES):
-        before = lk.LAUNCHES
+        before = klt.LAUNCHES
         n_kf = len(slam.map.keyframes)
         t1 = time.perf_counter()
         T_wc = slam.process_stereo(fl[i], fr[i], i * 0.05)
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t1)
         est.append(T_wc)
-        launches.append(lk.LAUNCHES - before)
+        launches.append(klt.LAUNCHES - before)
         is_kf.append(len(slam.map.keyframes) > n_kf)
-    total_launches = lk.LAUNCHES
+    total = {"klt_track": klt.LAUNCHES, "lk_iterate": lk.LAUNCHES}
     with tempfile.TemporaryDirectory() as out:
         slam.write_results(out)
         tum = np.loadtxt(Path(out) / "ov2slam_traj.txt")
@@ -183,16 +458,17 @@ def phase_slice(dev):
     n_kf, n3d = len(slam.map.keyframes), slam.map.n_3d()
     track_frames = [i for i in range(1, N_FRAMES) if not is_kf[i]]
     stereo_launches = launches[0]         # frame 0: stereo matching only
-    track_launches = sum(launches[i] for i in track_frames)
+    track_launches = [launches[i] for i in track_frames]
     steady = float(np.sum(dts[1:]))
     log(f"[slice] ATE {ate:.5f} m, keyframes {n_kf}, landmarks {n3d}, "
         f"steady-state {(N_FRAMES - 1) / steady:.2f} fps "
         f"({1000 * steady / (N_FRAMES - 1):.1f} ms/frame over frames 1-"
         f"{N_FRAMES - 1}; first frame {1000 * dts[0]:.0f} ms)")
-    log(f"[slice] LK launches: {total_launches} total, {stereo_launches} in "
-        f"the first keyframe's stereo matching, "
-        f"{track_launches / max(len(track_frames), 1):.1f} per tracking-only "
-        f"frame, {total_launches / N_FRAMES:.1f} per frame")
+    log(f"[slice] klt_track launches: {total['klt_track']} total, "
+        f"{stereo_launches} in the first keyframe's stereo matching, "
+        f"{sorted(set(track_launches))} per tracking-only frame over "
+        f"{len(track_frames)} such frames; lk_iterate launches: "
+        f"{total['lk_iterate']}")
 
     assert np.isfinite(est).all(), "non-finite pose"
     assert slam.initialized, "system never initialized"
@@ -200,94 +476,156 @@ def phase_slice(dev):
     assert ate < 0.05, f"ATE {ate:.4f} m"
     assert tum.shape == (N_FRAMES, 8) and kitti.shape == (N_FRAMES, 12), (
         tum.shape, kitti.shape)
-    assert stereo_launches > 0, "stereo matching never launched the kernel"
-    assert track_launches > 0, "tracking never launched the kernel"
-    return total_launches, (fl, fr)
+    assert stereo_launches >= 1, "stereo matching never launched klt_track"
+    assert track_frames and all(k == 1 for k in track_launches), (
+        f"tracking-only frames must launch klt_track once: {track_launches}")
+    assert total["lk_iterate"] == 0, "the per-chunk LK path ran on the slice"
+    return total, (fl, fr)
 
 
-def phase_profile(dev, frames, out: Path, n_prof: int = 20):
-    """Frames 1..n_prof of the slice once more under torch.profiler: device
-    busy share, kernel launches per frame, and the host scopes and kernels
-    that take the time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def klt_path(name: str):
+    """Run the system's KLT calls through the fused kernel ("fused") or the
+    per-chunk path ("per-chunk") for a before/after comparison."""
+    fused = klt.fb_klt_tracking
+    if name == "per-chunk":
+        klt.fb_klt_tracking = per_chunk_klt()
+    try:
+        yield
+    finally:
+        klt.fb_klt_tracking = fused
+
+
+def _slice_system(dev, frames):
     fl, fr = frames
     d = syn.slam_params_dict()
     d["doepipolar"] = 0
     slam = SlamSystem(SlamParams.from_dict(d), device=dev)
     slam.process_stereo(fl[0], fr[0], 0.0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(1, n_prof + 1):
-            slam.process_stereo(fl[i], fr[i], i * 0.05)
-        torch.cuda.synchronize()
-        wall_ms = 1000 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    is_scope = lambda e: e.key[:2] in ("0.", "1.", "2.")      # noqa: E731
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and not is_scope(e)]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
-    n_kern = sum(e.count for e in kernels)
-    log(f"[profile] frames 1-{n_prof} under the profiler: wall {wall_ms:.0f} ms, "
-        f"kernels busy {busy_ms:.0f} ms (idle share "
-        f"{1 - busy_ms / wall_ms:.3f}), {n_kern} kernel launches "
-        f"({n_kern / n_prof:.0f} per frame)")
-    for e in sorted((e for e in events if is_scope(e)
-                     and e.device_type == DeviceType.CPU),
-                    key=lambda e: -e.cpu_time_total):
-        log(f"[profile] scope {e.key}: {e.count} calls, "
-            f"{e.cpu_time_total / 1000:.0f} ms host")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile] kernel {e.key[:70]}: {e.count} launches, "
-            f"{e.self_device_time_total / 1000:.1f} ms")
+    return slam
+
+
+def phase_compare(dev, frames):
+    """Frames 1-59 of the slice through each KLT path, in turns (fused,
+    per-chunk, fused, per-chunk): steady-state fps and launches per frame
+    of the two kernels."""
+    fl, fr = frames
+    for name in ("fused", "per-chunk", "fused", "per-chunk"):
+        with klt_path(name):
+            slam = _slice_system(dev, frames)
+            k0, l0 = klt.LAUNCHES, lk.LAUNCHES
+            t0 = time.perf_counter()
+            for i in range(1, N_FRAMES):
+                slam.process_stereo(fl[i], fr[i], i * 0.05)
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        n = N_FRAMES - 1
+        log(f"[compare] {name}: {n / dt:.2f} fps ({1000 * dt / n:.1f} ms/frame "
+            f"over frames 1-{n}); per frame {(klt.LAUNCHES - k0) / n:.2f} "
+            f"klt_track and {(lk.LAUNCHES - l0) / n:.2f} lk_iterate launches; "
+            f"{len(slam.map.keyframes)} keyframes")
+
+
+def phase_profile(dev, frames, out: Path, n_prof: int = 20):
+    """Frames 1..n_prof of the slice once more under torch.profiler, through
+    each KLT path: device busy share, kernel launches per frame, and the
+    host scopes and kernels that take the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fl, fr = frames
     out.mkdir(parents=True, exist_ok=True)
-    (out / "torch_profile_slice.txt").write_text(
-        f"frames 1-{n_prof}: wall {wall_ms:.1f} ms, kernels busy {busy_ms:.1f} ms, "
-        f"{n_kern} kernel launches\n\nby self device time\n"
-        + events.table(sort_by="self_device_time_total", row_limit=40)
-        + "\n\nby host total\n"
-        + events.table(sort_by="cpu_time_total", row_limit=40) + "\n")
+    for name in ("fused", "per-chunk"):
+        with klt_path(name):
+            slam = _slice_system(dev, frames)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(1, n_prof + 1):
+                    slam.process_stereo(fl[i], fr[i], i * 0.05)
+                torch.cuda.synchronize()
+                wall_ms = 1000 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        is_scope = lambda e: e.key[:2] in ("0.", "1.", "2.")      # noqa: E731
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and not is_scope(e)]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
+        n_kern = sum(e.count for e in kernels)
+        log(f"[profile {name}] frames 1-{n_prof} under the profiler: wall "
+            f"{wall_ms:.0f} ms, kernels busy {busy_ms:.0f} ms (idle share "
+            f"{1 - busy_ms / wall_ms:.3f}), {n_kern} kernel launches "
+            f"({n_kern / n_prof:.0f} per frame)")
+        for e in sorted((e for e in events if is_scope(e)
+                         and e.device_type == DeviceType.CPU),
+                        key=lambda e: -e.cpu_time_total):
+            log(f"[profile {name}] scope {e.key}: {e.count} calls, "
+                f"{e.cpu_time_total / 1000:.0f} ms host")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[profile {name}] kernel {e.key[:70]}: {e.count} launches, "
+                f"{e.self_device_time_total / 1000:.1f} ms")
+        (out / f"torch_profile_slice_{name}.txt").write_text(
+            f"frames 1-{n_prof}, KLT path {name}: wall {wall_ms:.1f} ms, "
+            f"kernels busy {busy_ms:.1f} ms, {n_kern} kernel launches\n\n"
+            "by self device time\n"
+            + events.table(sort_by="self_device_time_total", row_limit=40)
+            + "\n\nby host total\n"
+            + events.table(sort_by="cpu_time_total", row_limit=40) + "\n")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="also profile the slice (torch.profiler) and write "
-                         "its tables into DIR")
+                    help="also compare the slice before and after the fused "
+                         "kernel, profile it (torch.profiler) and write the "
+                         "tables into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
               "here", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    log(smi[0])
+    smi = smi_line()
+    log(smi)
     device_mod.set_precision_policy()
     dev = torch.device("cuda", 0)
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.load("lk_iterate")
-    log(f"[build] lk_iterate.cu: {_build.BUILD_SECONDS.get('lk_iterate', 0.0):.1f} s "
-        f"nvcc ({time.perf_counter() - t0:.1f} s with load)")
-    for line in _build.BUILD_LOG.get("lk_iterate", "").splitlines():
-        log(f"[build] {line}")
+    _build.build(["lk_iterate", "klt_track"])
+    lk._kernel_fn()
+    klt._kernel_fn()
+    log(f"[build] {time.perf_counter() - t0:.1f} s for both libraries (one "
+        f"nvcc each, in parallel)")
+    for name in ("lk_iterate", "klt_track"):
+        log(f"[build] {name}.cu: {_build.BUILD_SECONDS.get(name, 0.0):.1f} s nvcc")
+        for line in _build.BUILD_LOG.get(name, "").splitlines():
+            if "Used" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name}: {line.strip()}")
 
-    worst, times = phase_kernel(dev)
+    lk_worst, lk_times = phase_kernel(dev)
+    fl, fr, _ = syn.render_sequence(n_frames=2, step=0.05)
+    klt_worst, klt_times = phase_klt(dev, (fl, fr))
     launches, frames = phase_slice(dev)
     if args.profile:
+        phase_compare(dev, frames)
         phase_profile(dev, frames, args.profile)
 
-    k_ms, p_ms = times[(192, 10)]
-    print(json.dumps({"kernels": [{
-        "name": "lk_iterate", "route": "cuda",
-        "source": "ov2slam_tpu_torch/csrc/lk_iterate.cu",
-        "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
-        "launches": launches, "max_abs_err": worst,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    k_ms, p_ms, b_ms, b_by = klt_times["temporal"]
+    lk_ms, lp_ms, lb_ms, lb_by = lk_times[(192, 10)]
+    log(smi)
+    print(json.dumps({"kernels": [
+        {"name": "klt_track", "route": "cuda",
+         "source": "ov2slam_tpu_torch/csrc/klt_track.cu",
+         "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
+         "launches": launches["klt_track"], "max_abs_err": klt_worst,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None},
+        {"name": "lk_iterate", "route": "cuda",
+         "source": "ov2slam_tpu_torch/csrc/lk_iterate.cu",
+         "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
+         "launches": launches["lk_iterate"], "max_abs_err": lk_worst,
+         "ms": lk_ms, "plain_ms": lp_ms, "bound_ms": lb_ms, "bound_by": lb_by,
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,16 +17,20 @@
 // registers (81 samples spread over the 32 lanes), bx/by are reduced by
 // warp shuffles, every lane computes the 2x2 step, and a warp leaves its
 // loop as soon as its point is inactive — the per-point form of the Pallas
-// kernel's block-wide early exit (an inactive point never changes). No
-// tensor cores, TMA or fusion of the window extraction yet.
+// kernel's block-wide early exit (an inactive point never changes). The
+// sampling and the GN step live in lk_common.cuh. The slice's tracking no
+// longer calls this kernel: klt_track.cu runs the whole forward-backward
+// KLT in one launch. This one stays as the direct counterpart of the
+// Pallas contract.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lk_common.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxSamplesPerLane = 8;   // win*win <= 256
 
 __global__ void lk_iterate_kernel(
     const float* __restrict__ nwin,     // (N, ws, ws)
@@ -55,10 +59,11 @@ __global__ void lk_iterate_kernel(
   const float* src = nwin + (size_t)n * ws * ws;
   for (int i = lane; i < ws * ws; i += 32) W[i] = src[i];
 
+  float t_[lkc::kMaxSamplesPerLane], gx_[lkc::kMaxSamplesPerLane],
+      gy_[lkc::kMaxSamplesPerLane];
   const int P = win * win;
-  float t_[kMaxSamplesPerLane], gx_[kMaxSamplesPerLane], gy_[kMaxSamplesPerLane];
 #pragma unroll
-  for (int s = 0; s < kMaxSamplesPerLane; ++s) {
+  for (int s = 0; s < lkc::kMaxSamplesPerLane; ++s) {
     const int idx = lane + 32 * s;
     const bool ok = idx < P;
     t_[s] = ok ? tmpl[(size_t)n * P + idx] : 0.f;
@@ -67,64 +72,13 @@ __global__ void lk_iterate_kernel(
   }
   __syncwarp();
 
-  const float Gxx = gxx[n], Gxy = gxy[n], Gyy = gyy[n], invd = inv_det[n];
-  const float ox = (float)origins[2 * n], oy = (float)origins[2 * n + 1];
-  const float cx = ctr[2 * n], cy = ctr[2 * n + 1];
-  const float r = (win - 1) * 0.5f;
   float px = pts[2 * n], py = pts[2 * n + 1];
   bool act = active[n] != 0;
-  bool conv_acc = false;
-
-  for (int it = 0; it < n_iters && act; ++it) {
-    const float qx = px - ox, qy = py - oy;
-    float bx = 0.f, by = 0.f;
-#pragma unroll
-    for (int s = 0; s < kMaxSamplesPerLane; ++s) {
-      const int idx = lane + 32 * s;
-      if (idx < P) {
-        const int a = idx / win, b = idx - a * win;
-        // hat weights max(0, 1 - |j - q|) at the two taps around q
-        const float yq = qy + ((float)a - r);
-        const float xq = qx + ((float)b - r);
-        const float y0f = floorf(yq), x0f = floorf(xq);
-        const int y0 = (int)y0f, x0 = (int)x0f;
-        const float wy0 = fmaxf(0.f, 1.f - fabsf(y0f - yq));
-        const float wy1 = fmaxf(0.f, 1.f - fabsf(y0f + 1.f - yq));
-        const float wx0 = fmaxf(0.f, 1.f - fabsf(x0f - xq));
-        const float wx1 = fmaxf(0.f, 1.f - fabsf(x0f + 1.f - xq));
-        const bool iy0 = y0 >= 0 && y0 < ws, iy1 = y0 + 1 >= 0 && y0 + 1 < ws;
-        const bool ix0 = x0 >= 0 && x0 < ws, ix1 = x0 + 1 >= 0 && x0 + 1 < ws;
-        float row0 = 0.f, row1 = 0.f;
-        if (iy0) {
-          if (ix0) row0 += wx0 * W[y0 * ws + x0];
-          if (ix1) row0 += wx1 * W[y0 * ws + x0 + 1];
-        }
-        if (iy1) {
-          if (ix0) row1 += wx0 * W[(y0 + 1) * ws + x0];
-          if (ix1) row1 += wx1 * W[(y0 + 1) * ws + x0 + 1];
-        }
-        const float d = wy0 * row0 + wy1 * row1 - t_[s];
-        bx += d * gx_[s];
-        by += d * gy_[s];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      bx += __shfl_xor_sync(0xffffffffu, bx, off);
-      by += __shfl_xor_sync(0xffffffffu, by, off);
-    }
-    // one value for the whole warp, so every lane takes the same exit
-    bx = __shfl_sync(0xffffffffu, bx, 0);
-    by = __shfl_sync(0xffffffffu, by, 0);
-    const float dx = -(Gyy * bx - Gxy * by) * invd;
-    const float dy = -(-Gxy * bx + Gxx * by) * invd;
-    px += dx;
-    py += dy;
-    const bool conv = dx * dx + dy * dy < eps2;
-    const float dev = fmaxf(fabsf(px - cx), fabsf(py - cy));
-    conv_acc = conv_acc || conv;
-    act = !conv && dev <= margin;
-  }
+  const bool conv_acc = lkc::gn_steps(
+      W, ws, lkc::lane_samples(win, lane), t_, gx_, gy_, gxx[n], gxy[n],
+      gyy[n], inv_det[n],
+      (float)origins[2 * n], (float)origins[2 * n + 1], ctr[2 * n],
+      ctr[2 * n + 1], n_iters, eps2, margin, px, py, act);
 
   if (lane == 0) {
     out_pts[2 * n] = px;
@@ -144,7 +98,7 @@ extern "C" int lk_iterate_launch(
     int N, int ws, int win, int n_iters, float eps, float margin,
     void* stream) {
   if (N <= 0) return 0;
-  if (win * win > 32 * kMaxSamplesPerLane) return (int)cudaErrorInvalidValue;
+  if (win * win > 32 * lkc::kMaxSamplesPerLane) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarpsPerBlock * ws * ws * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;

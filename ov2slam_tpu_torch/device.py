@@ -7,7 +7,9 @@ counterpart of the JAX package's ``jax_default_matmul_precision`` pin
 (``ov2slam_tpu/slam/manager.py:102``, ``SlamParams.matmul_precision``).
 
 One ``torch.device`` handle is resolved once by ``SlamSystem`` and threaded
-through every module that allocates.
+through every module that allocates. An entry point given no device runs on
+the first CUDA card and raises when there is none; nothing falls back to
+the CPU unasked.
 """
 
 from __future__ import annotations
@@ -26,8 +28,13 @@ def set_precision_policy() -> None:
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """The device a system runs on: the given one, else the first CUDA card
-    when there is one, else the CPU."""
+    """The device a system runs on: the given one, else the first CUDA card.
+    Without a card and without an explicit device this raises: the CPU runs
+    only when the caller asks for it (``device="cpu"``)."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ov2slam_tpu_torch: no CUDA device is available; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)

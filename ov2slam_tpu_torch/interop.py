@@ -4,7 +4,9 @@ Each function takes a JAX-package container (``Camera``, ``FrameKps``,
 ``FEState``, ``BAProblem``, ``SE3``, or the landmark arenas) whose fields are
 array-likes — JAX arrays or numpy — reads every field through
 ``numpy.asarray``, and returns the port's counterpart as tensors on the
-given device. Nothing here imports jax: the containers are read by field
+given device (``device=None`` is torch's default, the CPU: this module
+feeds the CPU parity tests and, unlike the system's entry points, keeps
+that default). Nothing here imports jax: the containers are read by field
 name. This system has no weights; this state plays their part, so module
 tests start both packages from identical inputs.
 """

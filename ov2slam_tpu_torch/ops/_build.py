@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``ov2slam_tpu_torch/build/`` under a name keyed on the hash
-of its source and flags, so an edited source rebuilds and an unchanged one
-loads at once. Only sources in the repository are used.
+of its source, the ``csrc`` headers it includes, and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once. ``build``
+starts one ``nvcc`` per source, all at once. Only sources in the repository
+are used.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,31 +40,62 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: Path) -> list:
+    """src and every csrc header it includes, directly or through another."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [CSRC / h for h in _INCLUDE.findall(f.read_text())
+                 if (CSRC / h).exists()]
+    return seen
+
+
 def library_path(name: str) -> Tuple[Path, Path]:
     """(source, library) paths for csrc/<name>.cu."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(src):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return src, BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every missing csrc/<name>.cu library, one nvcc each, all
+    started together."""
+    jobs = []
+    for name in names:
+        src, lib = library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, lib, tmp, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} (exit "
+                          f"{proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = out.strip()
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing, then load it."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src, lib = library_path(name)
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        BUILD_LOG[name] = (proc.stdout + proc.stderr).strip()
-    _LIBS[name] = ctypes.CDLL(str(lib))
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)[1]))
     return _LIBS[name]

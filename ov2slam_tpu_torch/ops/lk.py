@@ -1,10 +1,12 @@
 """The LK Gauss-Newton iteration loop: CUDA kernel wrapper + plain version.
 
 Port of ``ov2slam_tpu/ops/pallas_lk.py::lk_iterate`` (the JAX package's only
-Pallas kernel). ``lk_iterate`` keeps its contract: up to ``n_iters`` GN steps
-for all N keypoints at once, bilinear patch sampling inside each keypoint's
-integer-aligned ``ws x ws`` window, convergence at ``|delta| < eps``, a pause
-past ``margin`` from the window centre, and a converged-while-active mask.
+Pallas kernel), kept as its direct counterpart; the slice's KLT runs the
+fused ``csrc/klt_track.cu`` (``ops/klt.py``) instead. ``lk_iterate`` keeps
+its contract: up to ``n_iters`` GN steps for all N keypoints at once,
+bilinear patch sampling inside each keypoint's integer-aligned ``ws x ws``
+window, convergence at ``|delta| < eps``, a pause past ``margin`` from the
+window centre, and a converged-while-active mask.
 
 * For CUDA tensors it launches ``csrc/lk_iterate.cu`` (built at first use by
   ``ops/_build.py``) and counts the launch in ``LAUNCHES``; anything the
@@ -23,8 +25,8 @@ from typing import Tuple
 
 import torch
 
-# kernel launches made by lk_iterate (a plain count: the slice's runs read it
-# to show that tracking and stereo matching went through the kernel)
+# kernel launches made by lk_iterate (a plain count; the slice's tracking
+# runs the fused klt_track kernel instead, so there it stays 0)
 LAUNCHES = 0
 
 _FN = None

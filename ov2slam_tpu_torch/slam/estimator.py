@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ov2slam_tpu_torch.core.lie import SE3
+from ov2slam_tpu_torch.device import resolve_device
 from ov2slam_tpu_torch.opt import ba as ba_mod
 from ov2slam_tpu_torch.opt.residuals import Calib
 from ov2slam_tpu_torch.slam.map import MapStore
@@ -50,7 +51,7 @@ class Estimator:
         self.calib_l = calib_l
         self.calib_r = calib_r
         self.T_rl = T_rl
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.n_truncations = 0
 
     # ------------------------------------------------------------------

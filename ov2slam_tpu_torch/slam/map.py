@@ -18,6 +18,8 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from ov2slam_tpu_torch.device import resolve_device
+
 
 @dataclass
 class KeyframeRecord:
@@ -63,7 +65,7 @@ class MapStore:
 
     def __init__(self, lm_capacity: int = 1 << 16, dtype=np.float32,
                  kf_capacity: int = 1 << 11, device=None):
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.cap = lm_capacity
         # planning ceiling for keyframe count (SlamParams.kf_capacity):
         # sizes the pose-graph padding expectations; exceeding it is legal

@@ -1,5 +1,6 @@
-"""GPU-only tests of the port: the CUDA LK kernel against its plain version,
-and tracking through the kernel against the CPU path.
+"""GPU-only tests of the port: the CUDA kernels (the per-chunk LK loop
+``lk_iterate`` and the fused forward-backward KLT ``klt_track``) against
+their plain versions, and tracking through the kernel against the CPU path.
 
 This file imports neither jax nor OpenCV, so it runs on a GPU machine that
 has neither (``tests/conftest.py`` imports jax, hence ``--noconftest``):
@@ -9,15 +10,19 @@ has neither (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 Elsewhere every test skips. Tolerances: points whose convergence decision
 agrees, and that stopped, to 2e-3 px; every point to eps (one sub-eps GN
 step, or an oscillating point still iterating at the end of the budget);
-masks equal on 99% of points. Full tracking through the kernel vs the CPU
-plain path: status equal on 99%, points to 1e-2 px (the pyramid filters
-and window sampling also run on the card, in another summation order).
+masks equal on 99% of points. The fused KLT against fb_klt_tracking_plain
+on the same inputs on the card: status equal on 99%, points to 2e-3 px and
+error to 1e-3 where both tracked (the same f32 GN steps in another
+summation order; LK resolves 0.01 px). Full tracking through the kernel vs
+the CPU plain path: status equal on 99%, points to 1e-2 px (the pyramid
+filters also run on the card, in another summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import klt_inputs
 import synthetic_np as synp
 import torch_parity  # noqa: F401
 from ov2slam_tpu_torch.ops import image as im
@@ -26,7 +31,7 @@ from ov2slam_tpu_torch.ops import klt, lk
 WIN, WS, EPS, MARGIN = 9, 20, 0.01, 4.0
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -96,9 +101,46 @@ def test_kernel_frozen_and_empty_inputs(cuda):
     assert p.shape == (0, 2)
 
 
-@pytest.mark.cuda
-def test_fb_klt_through_kernel_matches_cpu(cuda):
+@pytest.fixture(scope="module")
+def frames(cuda):
     fl, fr, _ = synp.render_sequence(n_frames=2, step=0.05)
+    return fl, fr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [192, 320])
+@pytest.mark.parametrize("pair,jitter", [("temporal", 0.0), ("temporal", 1.5),
+                                         ("stereo", 0.0)])
+def test_klt_track_matches_plain_on_card(cuda, frames, N, pair, jitter):
+    args, kw = klt_inputs.klt_case(frames, N, pair, jitter, cuda)
+    before = klt.LAUNCHES
+    r = klt.fb_klt_tracking(*args, **kw)
+    rp = klt.fb_klt_tracking_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES == before + 1
+    s, sp = r.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert sp.sum() > 100 and (s == sp).mean() >= 0.99
+    both = s & sp
+    np.testing.assert_allclose(r.points.cpu().numpy()[both],
+                               rp.points.cpu().numpy()[both], atol=2e-3)
+    np.testing.assert_allclose(r.error.cpu().numpy()[both],
+                               rp.error.cpu().numpy()[both], atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_klt_track_empty_and_invalid(cuda, frames):
+    args, kw = klt_inputs.klt_case(frames, 192, "temporal", 1.5, cuda)
+    p0, p1, pts, prior, valid = args
+    r = klt.fb_klt_tracking(p0, p1, pts, prior, torch.zeros_like(valid), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(r.points, prior) and not r.status.any()
+    r = klt.fb_klt_tracking(p0, p1, pts[:0], prior[:0], valid[:0], **kw)
+    assert r.points.shape == (0, 2) and r.status.shape == (0,)
+
+
+@pytest.mark.cuda
+def test_fb_klt_through_kernel_matches_cpu(cuda, frames):
+    fl, fr = frames
     rng = np.random.default_rng(0)
     pts = np.stack([rng.uniform(30, 722, 192), rng.uniform(30, 450, 192)],
                    -1).astype(np.float32)
@@ -107,13 +149,14 @@ def test_fb_klt_through_kernel_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         p0 = im.build_pyramid(torch.from_numpy(fl[0]).to(dev), 3)
         p1 = im.build_pyramid(torch.from_numpy(fl[1]).to(dev), 3)
-        before = lk.LAUNCHES
+        before = (klt.LAUNCHES, lk.LAUNCHES)
         r = klt.fb_klt_tracking(p0, p1, torch.from_numpy(pts).to(dev),
                                 torch.from_numpy(pts).to(dev),
                                 torch.from_numpy(valid).to(dev))
-        out[str(dev)] = (r, lk.LAUNCHES - before)
-    (rc, n_cpu), (rg, n_gpu) = out["cpu"], out[str(cuda)]
-    assert n_cpu == 0 and n_gpu == 8      # 3 + 1 + 1 + 1 forward, 2 backward
+        out[str(dev)] = (r, klt.LAUNCHES - before[0], lk.LAUNCHES - before[1])
+    (rc, n_cpu, lk_cpu), (rg, n_gpu, lk_gpu) = out["cpu"], out[str(cuda)]
+    assert n_cpu == 0 and n_gpu == 1      # one fused launch per call
+    assert lk_cpu == lk_gpu == 0
     sc, sg = rc.status.numpy(), rg.status.cpu().numpy()
     assert sc.sum() > 100 and (sc == sg).mean() >= 0.99
     both = sc & sg

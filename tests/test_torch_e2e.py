@@ -68,7 +68,7 @@ def test_slice_matches_jax_end_to_end(sequence, tmp_path):
     assert kfs.shape == (len(ts.map.keyframes), 8)
     # the port's map store checkpoints like the JAX one
     ts.map.save(str(tmp_path / "map.npz"))
-    m2 = MapStore.load(str(tmp_path / "map.npz"))
+    m2 = MapStore.load(str(tmp_path / "map.npz"), device="cpu")
     assert m2.n_3d() == ts.map.n_3d() and sorted(m2.keyframes) == sorted(ts.map.keyframes)
     np.testing.assert_array_equal(m2.lm_pos, ts.map.lm_pos)
     assert m2.covis == ts.map.covis

@@ -23,6 +23,7 @@ Tolerances:
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from ov2slam_tpu.config import SlamParams as JParams
 from ov2slam_tpu.ops import image as jim
@@ -31,9 +32,12 @@ from ov2slam_tpu.slam import mapper as jmapper
 from ov2slam_tpu.slam.manager import SlamSystem as JSlam
 from ov2slam_tpu_torch import interop
 from ov2slam_tpu_torch.config import SlamParams
+from ov2slam_tpu_torch.device import resolve_device
 from ov2slam_tpu_torch.slam import frontend as tfe
 from ov2slam_tpu_torch.slam import mapper as tmapper
+from ov2slam_tpu_torch.slam.estimator import Estimator
 from ov2slam_tpu_torch.slam.manager import SlamSystem
+from ov2slam_tpu_torch.slam.map import MapStore
 
 import synthetic as syn
 from torch_parity import n, t
@@ -220,3 +224,32 @@ def test_slice_settings_accepted():
     d = slice_params()
     d["Camera.k1l"] = -0.28
     SlamSystem(SlamParams.from_dict(d), device="cpu")
+
+
+def test_no_card_needs_an_explicit_cpu(monkeypatch):
+    """Without a card an entry point given no device raises; the CPU runs
+    only when the caller asks for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = SlamParams.from_dict(slice_params())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlamSystem(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MapStore()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Estimator(params, None, None, None)
+    fl, fr, _ = syn.render_sequence(n_frames=1, step=0.05)
+    s = SlamSystem(params, device="cpu")
+    T_wc = s.process_stereo(fl[0], fr[0], 0.0)
+    assert s.device == s.map.device == s.estimator.device == torch.device("cpu")
+    assert np.isfinite(T_wc).all() and s.map.n_3d() > 50
+
+
+@pytest.mark.parametrize("available", [True, False])
+def test_resolve_device(monkeypatch, available):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: available)
+    assert resolve_device("cpu") == torch.device("cpu")
+    if available:
+        assert resolve_device(None) == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
