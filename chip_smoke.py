@@ -19,33 +19,54 @@ Phases (any failure raises; nothing falls back to the CPU):
    kernel by CUDA-graph replay, the whole ``fb_klt_tracking`` call and the
    per-chunk path (the plain glue around the ``lk_iterate`` kernel) by host
    clock;
-5. slice: a 60-frame 752x480 synthetic stereo sequence through
-   ``SlamSystem.process_stereo`` on the card, trajectory files written, ATE
-   checked, and the kernels' launch counts read around every frame (one
-   ``klt_track`` launch per tracking-only frame, at least one in the first
-   keyframe's stereo matching).
+5. ransac: ``essential_ransac`` (5-point, K = 512) and ``p3p_ransac``
+   (K = 256) on the card and on the CPU with the same sample indices, on
+   the correspondences of a rendered 752x480 pair 4 steps apart (step 0.05,
+   ~11 px of parallax); host time and device operations per call, and no
+   host sync inside either call; then the port's ``track_frame`` with the
+   epipolar filter on that pair (the gate must fire and the filter apply);
+6. clahe: ``clahe`` on the card against the CPU on a rendered frame;
+7. slice: a 60-frame 752x480 synthetic stereo sequence through
+   ``SlamSystem.process_stereo`` on the card with the epipolar filter on
+   (``bench.py``'s config without ``force_realtime``), trajectory files
+   written, ATE checked, and the kernels' launch counts read around every
+   frame (one ``klt_track`` launch per tracking-only frame, at least one in
+   the first keyframe's stereo matching), and the host syncs of every frame
+   counted by call site (PyTorch's sync debug mode), the epipolar gate's
+   read among them;
+8. mono slice: 60 frames of the same rig (step 0.05) through
+   ``SlamSystem.process_mono`` with the front-end settings the presets
+   switch on (``doepipolar``, ``dop3p``, ``use_clahe``): initialization,
+   Sim(3)-aligned ATE, trajectory files, exactly one ``klt_track`` launch
+   in every frame after the first, host syncs by call site.
 
+Each path's launch counts are set to 0 just before it runs and read just
+after; the ``kernels`` line sums them over the stereo and mono slices.
 The last three lines of standard output are the card's ``nvidia-smi`` name
 and power limit, a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` also runs the slice before and after
 the fused kernel, in turns (fused, per-chunk, fused, per-chunk; frames
-1-59 each), and frames 1-20 of each under ``torch.profiler``: fps, device
-idle share and kernel launches per frame, with the full tables in
-``DIR/torch_profile_slice_<path>.txt``.
+1-59 each), then with the epipolar filter on and off in turns, frames
+1-20 of each KLT path and frames 20-29 of the mono slice under
+``torch.profiler``: fps, device idle share and device operations per frame,
+with the full tables in ``DIR/torch_profile_<slice>.txt``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
+import inspect
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -59,6 +80,8 @@ from ov2slam_tpu_torch.config import SlamParams  # noqa: E402
 from ov2slam_tpu_torch.io.trajectories import ate_rmse  # noqa: E402
 from ov2slam_tpu_torch.ops import _build, klt, lk  # noqa: E402
 from ov2slam_tpu_torch.ops import image as im  # noqa: E402
+from ov2slam_tpu_torch.ops import mvg  # noqa: E402
+from ov2slam_tpu_torch.slam import frontend as fe_mod  # noqa: E402
 from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
 import klt_inputs  # noqa: E402
 import synthetic_np as syn  # noqa: E402
@@ -80,6 +103,13 @@ KLT_CASES = (("temporal", 0.0), ("temporal", 1.5), ("stereo", 0.0))
 # sample (four hat weights, two taps per row, the blend, the residual and
 # two multiply-adds).
 HBM_BPS, F32_FLOPS, FLOPS_PER_SAMPLE = 3.35e12, 67e12, 30
+# RANSAC and CLAHE on the card vs the CPU (plain PyTorch both; cuSOLVER and
+# LAPACK round the batched solves differently): inlier masks equal on 99%,
+# rotations within 1e-3 rad, translation directions within 1e-2 rad; CLAHE
+# within 0.01 gray levels. Mono: the Sim(3) ATE bound of
+# tests/test_e2e_mono.py.
+INL_AGREE, ROT_TOL, DIR_TOL, CLAHE_TOL, MONO_ATE = 0.99, 1e-3, 1e-2, 0.01, 0.08
+MONO_STEP = 0.05
 
 
 def log(msg: str):
@@ -425,27 +455,239 @@ def phase_klt(dev, frames):
     return worst, times
 
 
+def _is_scope(e) -> bool:
+    """The port's record_function scopes ("0.Full-Front_End", ...)."""
+    return e.key[:2] in ("0.", "1.", "2.")
+
+
+def profile_run(fn):
+    """fn() under torch.profiler: (wall ms, device busy ms, device
+    operations (kernel launches and copies), the profiler's key_averages)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1000 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    ops = [e for e in events if e.device_type == DeviceType.CUDA and not _is_scope(e)]
+    return (wall_ms, sum(e.self_device_time_total for e in ops) / 1000,
+            sum(e.count for e in ops), events)
+
+
+def log_profile(tag: str, what: str, n_frames: int, run, out: Path):
+    """Print a profile_run result per frame, its scopes and its costliest
+    device operations, and write the profiler's tables to out."""
+    from torch.autograd import DeviceType
+    wall_ms, busy_ms, n_ops, events = run
+    log(f"[{tag}] {what} under the profiler: wall {wall_ms:.0f} ms, device "
+        f"busy {busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+        f"{n_ops} device operations ({n_ops / n_frames:.0f} per frame)")
+    for e in sorted((e for e in events if _is_scope(e)
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: -e.cpu_time_total):
+        log(f"[{tag}] scope {e.key}: {e.count} calls, "
+            f"{e.cpu_time_total / 1000:.0f} ms host")
+    ops = [e for e in events if e.device_type == DeviceType.CUDA and not _is_scope(e)]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}] operation {e.key[:70]}: {e.count} launches, "
+            f"{e.self_device_time_total / 1000:.1f} ms")
+    out.write_text(
+        f"{what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+        f"{n_ops} device operations\n\nby self device time\n"
+        + events.table(sort_by="self_device_time_total", row_limit=40)
+        + "\n\nby host total\n"
+        + events.table(sort_by="cpu_time_total", row_limit=40) + "\n")
+
+
+def count_syncs(fn, sites: collections.Counter):
+    """fn() under PyTorch's sync debug mode: every operation that makes the
+    host wait for the card (a read-back, a copy from pageable memory) is
+    added to `sites` under its calling line ("ov2slam_tpu_torch/...:line",
+    or torch's own file for calls made inside torch). Returns fn()."""
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in ws:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            f = w.filename
+            f = "ov2slam_tpu_torch/" + f.split("/ov2slam_tpu_torch/")[-1] \
+                if "/ov2slam_tpu_torch/" in f else f.split("site-packages/")[-1]
+            sites[f"{f}:{w.lineno}"] += 1
+    return out
+
+
+def gate_site() -> str:
+    """The call site of the epipolar gate's host read in track_frame."""
+    lines, start = inspect.getsourcelines(fe_mod.track_frame)
+    k = next(i for i, line in enumerate(lines) if "avg_par > 2.0 *" in line)
+    return f"ov2slam_tpu_torch/slam/frontend.py:{start + k}"
+
+
+def log_syncs(tag: str, sites: collections.Counter, n_frames: int):
+    total = sum(sites.values())
+    top = ", ".join(f"{k} {v}" for k, v in sites.most_common(8))
+    log(f"[{tag}] host syncs: {total} in {n_frames} frames "
+        f"({total / n_frames:.2f} per frame); by site: {top}")
+
+
+def angle(R) -> float:
+    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+
+
+def direction_angle(a, b) -> float:
+    cos = abs(float(a @ b)) / max(float(np.linalg.norm(a) * np.linalg.norm(b)), 1e-12)
+    return float(np.arccos(min(cos, 1.0)))
+
+
+@contextlib.contextmanager
+def recording_essential_ransac(calls: list):
+    """Record every essential_ransac call's caller ("track_frame" for the
+    epipolar filter, "_try_mono_init" for the mono bootstrap) and result."""
+    real = mvg.essential_ransac
+
+    def rec(*a, **k):
+        out = real(*a, **k)
+        calls.append((sys._getframe(1).f_code.co_name, out))
+        return out
+    mvg.essential_ransac = rec
+    try:
+        yield
+    finally:
+        mvg.essential_ransac = real
+
+
+def ransac_pair(dev):
+    """The port's own correspondences on a rendered pair 4 steps apart: the
+    stereo system's first keyframe on frame 0, then tracking to frame 4
+    (no filter, no P3P start)."""
+    fl, fr, _ = syn.render_sequence(n_frames=5, step=MONO_STEP)
+    slam = SlamSystem(SlamParams.from_dict(syn.slam_params_dict()), device=dev)
+    slam.process_stereo(fl[0], fr[0], 0.0)
+    st = slam.fe_state
+    cur = fe_mod.preprocess(slam._to_device_u8(fl[4]), 3)
+    grads = [im.scharr_gradients(a) for a in cur]
+    lm_pos, lm_is3d = slam.map.device_landmarks()
+    track_args = (st.pyr, cur, st.kps, lm_pos, lm_is3d, slam.cam_l, st.R_cw,
+                  st.t_cw, st.R_cw, st.t_cw)
+    track_kw = dict(prev_gpyr=tuple(zip(st.gx, st.gy)), cur_gpyr=tuple(grads))
+    res = fe_mod.track_frame(*track_args, **track_kw)
+    kps = res.kps
+    slot = torch.clamp(kps.lmid, 0, lm_pos.shape[0] - 1)
+    kp3d = kps.valid & kps.is3d & lm_is3d[slot] & (kps.lmid >= 0)
+    focal = 0.5 * (slam.cam_l.fx + slam.cam_l.fy)
+    return dict(ess=(st.kps.bv, kps.bv, kps.valid), p3p=(lm_pos[slot], kps.bv, kp3d),
+                th=3.0 / focal, track=(track_args, track_kw))
+
+
+def phase_ransac(dev):
+    """essential_ransac (nister, K=512) and p3p_ransac (K=256), card vs CPU
+    with the same indices; then track_frame with the epipolar filter."""
+    pair = ransac_pair(dev)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cpu = torch.device("cpu")
+    rows = {}
+    for name, K, s in (("essential_ransac", 512, 5), ("p3p_ransac", 256, 3)):
+        args = pair["ess" if s == 5 else "p3p"]
+        valid = args[2]
+        idx = mvg.draw_samples(valid.cpu(), K, s, gen)
+        on = {d: ([x.to(d) for x in args], idx.to(d)) for d in (cpu, dev)}
+
+        def call(d, name=name):
+            a, i = on[d]
+            if name == "essential_ransac":
+                r = mvg.essential_ransac(*a, pair["th"], idx=i)
+                T = mvg.decompose_essential(r.model, a[0], a[1], r.inliers)
+                return r.inliers, r.success, T.R, T.t
+            T, inl, _, ok = mvg.p3p_ransac(*a, pair["th"], idx=i)
+            return inl, ok, T.R, T.t
+
+        out_g = [x.cpu().numpy() for x in call(dev)]
+        out_c = [x.numpy() for x in call(cpu)]
+        syncs = collections.Counter()
+        count_syncs(lambda: call(dev), syncs)
+        agree = float((out_g[0] == out_c[0]).mean())
+        d_rot, d_dir = angle(out_g[2].T @ out_c[2]), direction_angle(out_g[3], out_c[3])
+        ms = host_ms(lambda: call(dev), 3)
+        ops = profile_run(lambda: call(dev))[2]
+        rows[name] = (ms, ops)
+        log(f"[ransac] {name} K={K} on {int(valid.sum())} of {valid.shape[0]} "
+            f"points: inliers card {int(out_g[0].sum())} / CPU "
+            f"{int(out_c[0].sum())}, agree {agree:.4f}; rotation {d_rot:.3g} "
+            f"rad, translation direction {d_dir:.3g} rad apart; card "
+            f"{ms:.1f} ms per synchronised call (host clock), {ops} device "
+            f"operations per call, {sum(syncs.values())} host syncs per call")
+        assert not syncs, f"{name} waited for the card: {dict(syncs)}"
+        if not (bool(out_g[1]) and bool(out_c[1]) and agree >= INL_AGREE
+                and d_rot < ROT_TOL and d_dir < DIR_TOL):
+            raise AssertionError(
+                f"{name}: success {bool(out_g[1])}/{bool(out_c[1])}, inlier "
+                f"agreement {agree:.4f} (need {INL_AGREE}), rotation {d_rot:.3g} "
+                f"(tol {ROT_TOL}), direction {d_dir:.3g} (tol {DIR_TOL})")
+
+    # the front end's filter on the same pair: the gate fires, the filter
+    # applies (RANSAC success, inliers > half the tracked points) and no
+    # outlier stays valid
+    calls = []
+    track_args, track_kw = pair["track"]
+    gen_d = torch.Generator(device=dev)
+    gen_d.manual_seed(0)
+    with recording_essential_ransac(calls):
+        res = fe_mod.track_frame(
+            *track_args, **track_kw, do_epipolar=True,
+            draw=lambda v, k, s: mvg.draw_samples(v, k, s, gen_d))
+    assert len(calls) == 1, "the epipolar gate did not fire on ~11 px of parallax"
+    assert calls[0][0] == "track_frame", calls[0][0]
+    eres = calls[0][1]
+    n_tr, n_in = int(res.n_tracked), int(eres.n_inliers)
+    kept = int(res.kps.valid.sum())
+    log(f"[ransac] track_frame with the epipolar filter: gate fired, RANSAC "
+        f"success {bool(eres.success)}, {n_in} inliers of {n_tr} tracked, "
+        f"{kept} keypoints kept after PnP")
+    assert bool(eres.success) and n_in > 0.5 * n_tr, (n_in, n_tr)
+    assert not bool((res.kps.valid & ~eres.inliers).any()), "outlier kept"
+    return rows
+
+
+def phase_clahe(dev, frame):
+    """clahe on the card vs the CPU on a rendered frame."""
+    img = torch.from_numpy(np.ascontiguousarray(frame, np.float32))
+    out_c = im.clahe(img, clip_limit=3.0)
+    img_d = img.to(dev)
+    out_g = im.clahe(img_d, clip_limit=3.0)
+    err = float((out_g.cpu() - out_c).abs().max())
+    ms = host_ms(lambda: im.clahe(img_d, clip_limit=3.0), 20)
+    dev_ms = cuda_ms(lambda: im.clahe(img_d, clip_limit=3.0), 20)
+    ops = profile_run(lambda: im.clahe(img_d, clip_limit=3.0))[2]
+    log(f"[clahe] {tuple(img.shape)}: max |card - CPU| {err:.3g} gray levels "
+        f"(tol {CLAHE_TOL}); {ms:.3f} ms per synchronised call (host clock), "
+        f"{dev_ms:.3f} ms per call back to back (CUDA events), {ops} device "
+        f"operations per call")
+    assert err <= CLAHE_TOL, err
+    return ms, ops
+
+
 def phase_slice(dev):
-    """The stereo slice on the card, from the system's public entry points."""
+    """The stereo slice on the card, from the system's public entry points,
+    with the epipolar filter on."""
     t0 = time.perf_counter()
     fl, fr, gt = syn.render_sequence(n_frames=N_FRAMES, step=STEP, yaw_rate=YAW)
     log(f"[slice] rendered {N_FRAMES} frames at {syn.W}x{syn.H} in "
         f"{time.perf_counter() - t0:.1f} s")
-    d = syn.slam_params_dict()
-    d["doepipolar"] = 0
-    slam = SlamSystem(SlamParams.from_dict(d), device=dev)
-    est, launches, is_kf, dts = [], [], [], []
+    slam = SlamSystem(SlamParams.from_dict(syn.slam_params_dict()), device=dev)
+    assert slam.params.doepipolar
+    calls, syncs = [], collections.Counter()
     klt.LAUNCHES = lk.LAUNCHES = 0
-    for i in range(N_FRAMES):
-        before = klt.LAUNCHES
-        n_kf = len(slam.map.keyframes)
-        t1 = time.perf_counter()
-        T_wc = slam.process_stereo(fl[i], fr[i], i * 0.05)
-        torch.cuda.synchronize()
-        dts.append(time.perf_counter() - t1)
-        est.append(T_wc)
-        launches.append(klt.LAUNCHES - before)
-        is_kf.append(len(slam.map.keyframes) > n_kf)
+    with recording_essential_ransac(calls):
+        est, launches, is_kf, dts = run_frames(
+            slam, lambda i: slam.process_stereo(fl[i], fr[i], i * 0.05), syncs)
     total = {"klt_track": klt.LAUNCHES, "lk_iterate": lk.LAUNCHES}
     with tempfile.TemporaryDirectory() as out:
         slam.write_results(out)
@@ -469,6 +711,10 @@ def phase_slice(dev):
         f"{sorted(set(track_launches))} per tracking-only frame over "
         f"{len(track_frames)} such frames; lk_iterate launches: "
         f"{total['lk_iterate']}")
+    gate_reads = syncs[gate_site()]
+    log(f"[slice] epipolar gate: {gate_reads} host reads, fired "
+        f"{len(calls)} times")
+    log_syncs("slice", syncs, N_FRAMES)
 
     assert np.isfinite(est).all(), "non-finite pose"
     assert slam.initialized, "system never initialized"
@@ -480,7 +726,83 @@ def phase_slice(dev):
     assert track_frames and all(k == 1 for k in track_launches), (
         f"tracking-only frames must launch klt_track once: {track_launches}")
     assert total["lk_iterate"] == 0, "the per-chunk LK path ran on the slice"
+    assert gate_reads == N_FRAMES - 1, f"{gate_reads} gate reads"
     return total, (fl, fr)
+
+
+def run_frames(slam, step, syncs: collections.Counter):
+    """Drive `step(i)` over the frames, each synchronised: poses, klt_track
+    launches, keyframe flags and seconds per frame; the host syncs inside
+    the steps go into `syncs` by call site."""
+    est, launches, is_kf, dts = [], [], [], []
+    for i in range(N_FRAMES):
+        before = klt.LAUNCHES
+        n_kf = len(slam.map.keyframes)
+        t1 = time.perf_counter()
+        T_wc = count_syncs(lambda: step(i), syncs)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t1)
+        est.append(T_wc)
+        launches.append(klt.LAUNCHES - before)
+        is_kf.append(len(slam.map.keyframes) > n_kf)
+    return est, launches, is_kf, dts
+
+
+def mono_params():
+    d = syn.slam_params_dict()
+    d.update({"mono": 1, "stereo": 0, "doepipolar": 1, "dop3p": 1,
+              "use_clahe": 1, "force_realtime": 0, "buse_loop_closer": 0})
+    return SlamParams.from_dict(d)
+
+
+def phase_mono(dev):
+    """The mono slice on the card through process_mono."""
+    fl, _, gt = syn.render_sequence(n_frames=N_FRAMES, step=MONO_STEP)
+    slam = SlamSystem(mono_params(), device=dev)
+    calls, inits, syncs = [], [], collections.Counter()
+    klt.LAUNCHES = lk.LAUNCHES = 0
+
+    def step(i):
+        T = slam.process_mono(fl[i], i * 0.05)
+        if slam.initialized and not inits:
+            inits.append(i)
+        return T
+
+    with recording_essential_ransac(calls):
+        est, launches, _, dts = run_frames(slam, step, syncs)
+    total = {"klt_track": klt.LAUNCHES, "lk_iterate": lk.LAUNCHES}
+    with tempfile.TemporaryDirectory() as out:
+        slam.write_results(out)
+        tum = np.loadtxt(Path(out) / "ov2slam_traj.txt")
+        kitti = np.loadtxt(Path(out) / "ov2slam_traj_kitti.txt")
+    est = np.stack(est)
+    gt_t = np.stack([T[:3, 3] for T in gt])
+    ate = ate_rmse(est[:, :3, 3], gt_t, with_scale=True)
+    steady = float(np.sum(dts[1:]))
+    n_gate = sum(1 for caller, _ in calls if caller == "track_frame")
+    gate_reads = syncs[gate_site()]
+    n_kf, n3d = len(slam.map.keyframes), slam.map.n_3d()
+    log(f"[mono] init at frame {inits[0] if inits else None}, keyframes "
+        f"{n_kf}, landmarks {n3d}, Sim(3) ATE {ate:.5f} m, steady-state "
+        f"{(N_FRAMES - 1) / steady:.2f} fps ({1000 * steady / (N_FRAMES - 1):.1f} "
+        f"ms/frame over frames 1-{N_FRAMES - 1}; first frame "
+        f"{1000 * dts[0]:.0f} ms)")
+    log(f"[mono] klt_track launches {total['klt_track']} "
+        f"({sorted(set(launches[1:]))} per frame after the first), lk_iterate "
+        f"{total['lk_iterate']}; epipolar gate: {gate_reads} host reads, "
+        f"fired {n_gate} times; bootstrap RANSACs {len(calls) - n_gate}")
+    log_syncs("mono", syncs, N_FRAMES)
+    assert np.isfinite(est).all(), "non-finite pose"
+    assert slam.initialized, "mono never initialized"
+    assert n3d > 40, n3d
+    assert ate < MONO_ATE, f"Sim(3) ATE {ate:.4f} m"
+    assert tum.shape == (N_FRAMES, 8) and kitti.shape == (N_FRAMES, 12), (
+        tum.shape, kitti.shape)
+    assert all(k == 1 for k in launches[1:]), (
+        f"every mono frame after the first must launch klt_track once: {launches}")
+    assert total["lk_iterate"] == 0, "the per-chunk LK path ran on the mono slice"
+    assert gate_reads == N_FRAMES - 1, f"{gate_reads} gate reads"
+    return total, fl
 
 
 @contextlib.contextmanager
@@ -496,10 +818,10 @@ def klt_path(name: str):
         klt.fb_klt_tracking = fused
 
 
-def _slice_system(dev, frames):
+def _slice_system(dev, frames, doepipolar: int = 1):
     fl, fr = frames
     d = syn.slam_params_dict()
-    d["doepipolar"] = 0
+    d["doepipolar"] = doepipolar
     slam = SlamSystem(SlamParams.from_dict(d), device=dev)
     slam.process_stereo(fl[0], fr[0], 0.0)
     torch.cuda.synchronize()
@@ -507,13 +829,16 @@ def _slice_system(dev, frames):
 
 
 def phase_compare(dev, frames):
-    """Frames 1-59 of the slice through each KLT path, in turns (fused,
-    per-chunk, fused, per-chunk): steady-state fps and launches per frame
+    """Frames 1-59 of the slice in turns: through each KLT path (fused,
+    per-chunk, fused, per-chunk), then with the epipolar filter on and off
+    (on, off, on, off; fused KLT): steady-state fps and launches per frame
     of the two kernels."""
     fl, fr = frames
-    for name in ("fused", "per-chunk", "fused", "per-chunk"):
+    turns = ([(k, 1) for k in ("fused", "per-chunk", "fused", "per-chunk")]
+             + [("fused", e) for e in (1, 0, 1, 0)])
+    for name, epi in turns:
         with klt_path(name):
-            slam = _slice_system(dev, frames)
+            slam = _slice_system(dev, frames, doepipolar=epi)
             k0, l0 = klt.LAUNCHES, lk.LAUNCHES
             t0 = time.perf_counter()
             for i in range(1, N_FRAMES):
@@ -521,63 +846,43 @@ def phase_compare(dev, frames):
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         n = N_FRAMES - 1
-        log(f"[compare] {name}: {n / dt:.2f} fps ({1000 * dt / n:.1f} ms/frame "
-            f"over frames 1-{n}); per frame {(klt.LAUNCHES - k0) / n:.2f} "
-            f"klt_track and {(lk.LAUNCHES - l0) / n:.2f} lk_iterate launches; "
+        log(f"[compare] {name}, epipolar filter {'on' if epi else 'off'}: "
+            f"{n / dt:.2f} fps ({1000 * dt / n:.1f} ms/frame over frames "
+            f"1-{n}); per frame {(klt.LAUNCHES - k0) / n:.2f} klt_track and "
+            f"{(lk.LAUNCHES - l0) / n:.2f} lk_iterate launches; "
             f"{len(slam.map.keyframes)} keyframes")
 
 
-def phase_profile(dev, frames, out: Path, n_prof: int = 20):
-    """Frames 1..n_prof of the slice once more under torch.profiler, through
-    each KLT path: device busy share, kernel launches per frame, and the
-    host scopes and kernels that take the time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_profile(dev, frames, mono_frames, out: Path, n_prof: int = 20):
+    """Frames 1..n_prof of the stereo slice once more under torch.profiler,
+    through each KLT path, and frames 20-29 of the mono slice: device busy
+    share, device operations per frame, and the host scopes and operations
+    that take the time."""
     fl, fr = frames
     out.mkdir(parents=True, exist_ok=True)
     for name in ("fused", "per-chunk"):
         with klt_path(name):
             slam = _slice_system(dev, frames)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for i in range(1, n_prof + 1):
-                    slam.process_stereo(fl[i], fr[i], i * 0.05)
-                torch.cuda.synchronize()
-                wall_ms = 1000 * (time.perf_counter() - t0)
-        events = prof.key_averages()
-        is_scope = lambda e: e.key[:2] in ("0.", "1.", "2.")      # noqa: E731
-        kernels = [e for e in events
-                   if e.device_type == DeviceType.CUDA and not is_scope(e)]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
-        n_kern = sum(e.count for e in kernels)
-        log(f"[profile {name}] frames 1-{n_prof} under the profiler: wall "
-            f"{wall_ms:.0f} ms, kernels busy {busy_ms:.0f} ms (idle share "
-            f"{1 - busy_ms / wall_ms:.3f}), {n_kern} kernel launches "
-            f"({n_kern / n_prof:.0f} per frame)")
-        for e in sorted((e for e in events if is_scope(e)
-                         and e.device_type == DeviceType.CPU),
-                        key=lambda e: -e.cpu_time_total):
-            log(f"[profile {name}] scope {e.key}: {e.count} calls, "
-                f"{e.cpu_time_total / 1000:.0f} ms host")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[profile {name}] kernel {e.key[:70]}: {e.count} launches, "
-                f"{e.self_device_time_total / 1000:.1f} ms")
-        (out / f"torch_profile_slice_{name}.txt").write_text(
-            f"frames 1-{n_prof}, KLT path {name}: wall {wall_ms:.1f} ms, "
-            f"kernels busy {busy_ms:.1f} ms, {n_kern} kernel launches\n\n"
-            "by self device time\n"
-            + events.table(sort_by="self_device_time_total", row_limit=40)
-            + "\n\nby host total\n"
-            + events.table(sort_by="cpu_time_total", row_limit=40) + "\n")
+            run = profile_run(lambda: [slam.process_stereo(fl[i], fr[i], i * 0.05)
+                                       for i in range(1, n_prof + 1)])
+        log_profile(f"profile {name}", f"frames 1-{n_prof}, KLT path {name}",
+                    n_prof, run, out / f"torch_profile_slice_{name}.txt")
+    slam = SlamSystem(mono_params(), device=dev)
+    for i in range(20):
+        slam.process_mono(mono_frames[i], i * 0.05)
+    run = profile_run(lambda: [slam.process_mono(mono_frames[i], i * 0.05)
+                               for i in range(20, 30)])
+    log_profile("profile mono", "mono frames 20-29", 10, run,
+                out / "torch_profile_mono.txt")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="also compare the slice before and after the fused "
-                         "kernel, profile it (torch.profiler) and write the "
-                         "tables into DIR")
+                         "kernel and with the epipolar filter on and off, "
+                         "profile it and the mono slice (torch.profiler) and "
+                         "write the tables into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
@@ -605,10 +910,14 @@ def main() -> int:
     lk_worst, lk_times = phase_kernel(dev)
     fl, fr, _ = syn.render_sequence(n_frames=2, step=0.05)
     klt_worst, klt_times = phase_klt(dev, (fl, fr))
+    phase_ransac(dev)
+    phase_clahe(dev, fl[0])
     launches, frames = phase_slice(dev)
+    mono, mono_frames = phase_mono(dev)
+    launches = {k: launches[k] + mono[k] for k in launches}
     if args.profile:
         phase_compare(dev, frames)
-        phase_profile(dev, frames, args.profile)
+        phase_profile(dev, frames, mono_frames, args.profile)
 
     k_ms, p_ms, b_ms, b_by = klt_times["temporal"]
     lk_ms, lp_ms, lb_ms, lb_by = lk_times[(192, 10)]

@@ -38,3 +38,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "ov2slam_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return torch.device("cuda", 0)
+
+
+def select(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x[k] for a 0-dim integer tensor k, read on k's device: indexing with
+    the tensor itself reads k back to the host first, a sync on the card."""
+    return x.index_select(0, k.reshape(1))[0]

@@ -1,6 +1,6 @@
-"""Whole-image ops: pyramids, blur, gradients (port of the parts of
-``ov2slam_tpu/ops/image.py`` the slice uses; CLAHE and the remaps are not
-ported yet).
+"""Whole-image ops: pyramids, blur, gradients, CLAHE (port of the parts of
+``ov2slam_tpu/ops/image.py`` the port uses; the remaps are not ported yet,
+ROADMAP queue A4).
 
 Images are float32 (H, W) in [0, 255]. The separable filters keep the JAX
 package's shifted-add formulation and its reflect-101 border (OpenCV's
@@ -81,3 +81,68 @@ def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     d = np.array([-1.0, 0.0, 1.0], np.float32)
     s = np.array([1.0, 2.0, 1.0], np.float32)
     return _sep_conv2d(img, d, s), _sep_conv2d(img, s, d)
+
+
+_CLAHE_TILES = 8      # tiles per side, as cv::createCLAHE's default grid
+_CLAHE_BINS = 256
+
+
+def clahe(img: torch.Tensor, clip_limit: float = 3.0) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization (cv::CLAHE
+    semantics: 8 x 8 tiles, clip limit scaled by tile size / 256 bins,
+    excess redistributed uniformly, bilinear LUT interpolation between tile
+    centres). img (H, W) float32 in [0, 255]; returns the same shape and
+    range.
+
+    The image is padded reflect-101 to a whole number of tiles, as OpenCV
+    does. The JAX package counts each tile's histogram as a one-hot sum
+    (92 M booleans at 752x480); here one ``scatter_add_`` over (tile, bin)
+    counts the same integers (``bincount`` would read its input's maximum
+    back to the host)."""
+    n_t, nbins = _CLAHE_TILES, _CLAHE_BINS
+    H, W = img.shape
+    th, tw = -(-H // n_t), -(-W // n_t)
+    Hp, Wp = th * n_t, tw * n_t
+    padded = img
+    if Hp > H or Wp > W:
+        padded = F.pad(img[None, None], (0, Wp - W, 0, Hp - H),
+                       mode="reflect")[0, 0]
+    q = torch.clamp(torch.round(padded), 0, nbins - 1).to(torch.int64)
+    dev = img.device
+    ty_of = torch.arange(Hp, device=dev) // th
+    tx_of = torch.arange(Wp, device=dev) // tw
+    tile = ty_of[:, None] * n_t + tx_of[None, :]                  # (Hp, Wp)
+    flat = (tile * nbins + q).reshape(-1)
+    hist = torch.zeros(n_t * n_t * nbins, dtype=torch.int64, device=dev)
+    hist = hist.scatter_add_(0, flat, torch.ones_like(flat))
+    hist = hist.reshape(n_t * n_t, nbins).to(torch.float32)
+
+    # clip + uniform redistribution (single pass, like OpenCV)
+    tile_px = th * tw
+    limit = max(clip_limit * tile_px / nbins, 1.0)
+    clipped = torch.clamp(hist, max=limit)
+    excess = torch.sum(hist - clipped, dim=1, keepdim=True)
+    clipped = clipped + excess / nbins
+    lut = torch.cumsum(clipped, dim=1) * ((nbins - 1.0) / tile_px)
+    lut = lut.reshape(n_t, n_t, nbins)
+
+    # interpolate between the 4 surrounding tile LUTs at every pixel
+    ys = torch.arange(Hp, dtype=torch.float32, device=dev)
+    xs = torch.arange(Wp, dtype=torch.float32, device=dev)
+    ty = (ys - th / 2.0 + 0.5) / th
+    tx = (xs - tw / 2.0 + 0.5) / tw
+    ty0 = torch.clamp(torch.floor(ty), 0, n_t - 1).to(torch.int64)
+    tx0 = torch.clamp(torch.floor(tx), 0, n_t - 1).to(torch.int64)
+    ty1 = torch.clamp(ty0 + 1, 0, n_t - 1)
+    tx1 = torch.clamp(tx0 + 1, 0, n_t - 1)
+    fy = torch.clamp(ty - ty0.to(torch.float32), 0.0, 1.0)[:, None]
+    fx = torch.clamp(tx - tx0.to(torch.float32), 0.0, 1.0)[None, :]
+
+    def lut_at(tyi, txi):
+        return lut[tyi[:, None], txi[None, :], q]
+
+    out = (lut_at(ty0, tx0) * (1 - fy) * (1 - fx)
+           + lut_at(ty0, tx1) * (1 - fy) * fx
+           + lut_at(ty1, tx0) * fy * (1 - fx)
+           + lut_at(ty1, tx1) * fy * fx)
+    return out[:H, :W]

@@ -1,14 +1,15 @@
 """SlamSystem: the orchestrator wiring front end, mapper and estimator
-(port of the synchronous stereo path of ``ov2slam_tpu/slam/manager.py``).
+(port of the synchronous stereo and mono paths of
+``ov2slam_tpu/slam/manager.py``).
 
 Replaces the reference's SlamManager (ov2slam.cpp:33-237): calibration
 setup, the per-frame loop (tracking -> KF decision -> keyframe processing ->
-local BA), and results writing. Every frame runs to completion before the
-next: one device step per frame, one (12,) stats read on the host, and
-keyframe processing inline.
+local BA), the monocular bootstrap, P3P pose recovery, and results writing.
+Every frame runs to completion before the next: one device step per frame,
+one (12,) stats read on the host, and keyframe processing inline.
 
-Only the slice configuration is ported. Every other setting raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+Settings outside the ported paths raise ``NotImplementedError`` naming the
+ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from ov2slam_tpu_torch.core.camera import Camera
 from ov2slam_tpu_torch.core.lie import SE3
 from ov2slam_tpu_torch.io.trajectories import TrajectoryLogger
 from ov2slam_tpu_torch.ops import detect as det_mod
+from ov2slam_tpu_torch.ops import mvg
+from ov2slam_tpu_torch.opt import pnp as pnp_mod
 from ov2slam_tpu_torch.slam import frontend as fe_mod
 from ov2slam_tpu_torch.slam import mapper as mapper_mod
 from ov2slam_tpu_torch.slam.estimator import Estimator
@@ -44,15 +47,11 @@ def _mat_from_quat_np(q: np.ndarray) -> np.ndarray:
 
 
 def unsupported_settings(p: SlamParams):
-    """(setting, ROADMAP item) pairs of `p` outside the ported slice."""
+    """(setting, ROADMAP item) pairs of `p` outside the ported paths."""
     dist = np.abs([p.k1l, p.k2l, p.p1l, p.p2l, p.k1r, p.k2r, p.p1r, p.p2r])
     rot = (p.T_left_right is not None and np.abs(
         np.asarray(p.T_left_right)[:3, :3] - np.eye(3)).max() > 1e-6)
     checks = [
-        (p.mono or not p.stereo, "mono", "A3 P3P recovery and mono"),
-        (p.use_clahe, "use_clahe", "A2 CLAHE"),
-        (p.doepipolar, "doepipolar", "A1 essential-matrix RANSAC"),
-        (p.dop3p, "dop3p", "A3 P3P recovery and mono"),
         (p.btrack_keyframetoframe, "btrack_keyframetoframe",
          "A4 rectification and KF-to-frame tracking"),
         (p.force_realtime or p.async_ba, "force_realtime/async_ba",
@@ -74,13 +73,13 @@ def unsupported_settings(p: SlamParams):
 
 
 class SlamSystem:
-    """Stereo SLAM pipeline on one torch device."""
+    """Stereo or mono SLAM pipeline on one torch device."""
 
     def __init__(self, params: SlamParams, device=None):
         bad = unsupported_settings(params)
         if bad:
             raise NotImplementedError(
-                "ov2slam_tpu_torch runs the stereo slice only; not ported: "
+                "ov2slam_tpu_torch: not ported: "
                 + "; ".join(f"{n} (ROADMAP queue {i})" for n, i in bad))
         device_mod.set_precision_policy()
         self.params = p = params
@@ -120,6 +119,14 @@ class SlamSystem:
         self.kp_cap = p.kp_cap
         self.logger = TrajectoryLogger()
         self.reset()
+
+    def _gen(self, i: int) -> torch.Generator:
+        """RANSAC generator of the mono bootstrap and the P3P recovery.
+        bdo_random=0 pins every draw to one seed (the reference passes
+        bdo_random to OpenGV's RANSAC, multi_view_geometry.cpp:207)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(i) if self.params.bdo_random else 0)
+        return gen
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -189,20 +196,40 @@ class SlamSystem:
         img = self._to_device_u8(iml)
         with record_function("0.Full-Front_End"):
             if self.fe_state is None:
-                self.fe_state = fe_mod.init_fe_state(img, self.kp_cap,
-                                                     p.nklt_pyr_lvl)
+                self.fe_state = self._init_fe_state(img)
                 self._initialize_stereo(imr, time)
                 self._log_pose(time, True)
                 return self.T_wc()
-            lm_pos, lm_is3d = self.map.device_landmarks()
-            self.fe_state, stats = fe_mod.frame_step(
-                self.fe_state, img, lm_pos, lm_is3d, self.cam_l,
-                levels=p.nklt_pyr_lvl, nklt_win=p.nklt_win_size,
-                nmax_iter=p.nmax_iter, fmax_px_precision=p.fmax_px_precision,
-                fmax_fbklt_dist=p.fmax_fbklt_dist, klt_err=p.nklt_err,
-                robust_th2=p.robust_mono_th)
-        self._finalize_frame(stats.cpu().numpy(), imr, time)
+            stats = self._frame_step(img)
+        self._finalize_frame(stats, imr, time)
         return self.T_wc()
+
+    def _init_fe_state(self, img: torch.Tensor) -> fe_mod.FEState:
+        p = self.params
+        return fe_mod.init_fe_state(img, self.kp_cap, p.nklt_pyr_lvl,
+                                    p.use_clahe, p.fclahe_val)
+
+    def _frame_step(self, img: torch.Tensor) -> np.ndarray:
+        """The front end's per-frame device step; returns its stats vector
+        on the host."""
+        p = self.params
+        lm_pos, lm_is3d = self.map.device_landmarks()
+        self.fe_state, stats = fe_mod.frame_step(
+            self.fe_state, img, lm_pos, lm_is3d, self.cam_l,
+            levels=p.nklt_pyr_lvl, use_clahe=p.use_clahe,
+            clahe_clip=p.fclahe_val, nklt_win=p.nklt_win_size,
+            nmax_iter=p.nmax_iter, fmax_px_precision=p.fmax_px_precision,
+            fmax_fbklt_dist=p.fmax_fbklt_dist, klt_err=p.nklt_err,
+            do_epipolar=p.doepipolar, fransac_err=p.fransac_err,
+            robust_th2=p.robust_mono_th,
+            n_ransac_hyps=fe_mod.ransac_hyps_of(p), dop3p=p.dop3p)
+        return stats.cpu().numpy()
+
+    def _pose_from_stats(self, stats_np: np.ndarray):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = _mat_from_quat_np(stats_np[8:12])
+        T[:3, 3] = stats_np[5:8]
+        self.T_cw = T
 
     def _log_pose(self, time, is_kf: bool):
         T_wkf = None
@@ -219,15 +246,11 @@ class SlamSystem:
         n_3d = int(stats_np[2])
         parallax = float(stats_np[4])
         if pose_ok:
-            T = np.eye(4, dtype=np.float32)
-            T[:3, :3] = _mat_from_quat_np(stats_np[8:12])
-            T[:3, 3] = stats_np[5:8]
-            self.T_cw = T
+            self._pose_from_stats(stats_np)
         elif n_3d >= 10 and self.initialized:
-            raise NotImplementedError(
-                f"frame {self.frame_id}: prior-seeded PnP failed with {n_3d} "
-                "3D keypoints; the P3P-RANSAC recovery is not ported "
-                "(ROADMAP queue A3 P3P recovery and mono)")
+            # P3P-RANSAC recovery when the prior-seeded PnP failed
+            # (p3pRansac path, visual_front_end.cpp:659-851)
+            pose_ok = self._try_p3p_recovery()
         need_kf = fe_mod.check_new_kf(
             p, n_tracked, n_3d, parallax, self.frames_since_kf,
             self.n3d_at_kf, pose_ok, time_since_kf=time - self.kf_time)
@@ -245,9 +268,145 @@ class SlamSystem:
             self.initialized = True
 
     # ------------------------------------------------------------------
-    def _create_keyframe(self, imr, time, run_ba: bool = True):
+    def _try_p3p_recovery(self) -> bool:
+        """Pose recovery via P3P-RANSAC + robust PnP against the current 3D
+        keypoints when the prior-seeded PnP failed."""
+        lm_pos, lm_is3d = self.map.device_landmarks()
+        kps = self.kps
+        slot = torch.clamp(kps.lmid, 0, self.map.cap - 1)
+        mask = kps.valid & kps.is3d & lm_is3d[slot] & (kps.lmid >= 0)
+        Xw = lm_pos[slot]
+        focal = 0.5 * (self.cam_l.fx + self.cam_l.fy)
+        T_est, inl, _, okflag = mvg.p3p_ransac(
+            Xw, kps.bv, mask, err_th_norm=self.params.fransac_err / focal,
+            idx=mvg.draw_samples(mask, 512, 3, self._gen(self.frame_id)))
+        pnp = pnp_mod.pnp_robust_then_l2(
+            fe_mod.calib_of(self.cam_l), T_est, Xw, kps.unpx, inl,
+            robust_th2=self.params.robust_mono_th)
+        ok, R_np, t_np, n_inl = (a.cpu().numpy() for a in (
+            okflag, pnp.T_cw.R, pnp.T_cw.t, pnp.n_inliers))
+        if not bool(ok) or int(n_inl) < 5:
+            return False
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R_np
+        T[:3, 3] = t_np
+        self.T_cw = T
+        self._sync_pose_to_device()
+        return True
+
+    # ------------------------------------------------------------------
+    def process_mono(self, im: np.ndarray, time: float) -> np.ndarray:
+        """One monocular frame in, camera-to-world pose out (trackMono +
+        mono init, visual_front_end.cpp:65-128, :855-984): 2D KLT tracking
+        until the parallax since the first keyframe exceeds finit_parallax,
+        then the essential-matrix bootstrap at the arbitrary scale 0.25,
+        temporal triangulation, and PnP tracking thereafter."""
+        p = self.params
+        self.frame_id += 1
+        img = self._to_device_u8(im)
+        with record_function("0.Full-Front_End"):
+            if self.fe_state is None:
+                self.fe_state = self._init_fe_state(img)
+                self._create_keyframe(None, time, run_ba=False, stereo=False)
+                self.logger.add(time, self.T_wc(), True, self.cur_kfid, None)
+                return self.T_wc()
+            stats_np = self._frame_step(img)
+
+        if self.initialized:
+            self._finalize_mono(stats_np, time)
+            return self.T_wc()
+        if stats_np[0] > 0.5:
+            self._pose_from_stats(stats_np)
+        # tracking loss before init resets (the reference's absolute
+        # threshold, nb2dkps_ < 50, visual_front_end.cpp:99-101)
+        if int(stats_np[1]) < 50:
+            self.reset()
+            self.logger.add(time, np.eye(4, dtype=np.float32), False, -1, None)
+            return np.eye(4, dtype=np.float32)
+        if float(stats_np[4]) > p.finit_parallax:
+            self._try_mono_init(time)
+        # as the JAX package: counted and logged as a non-keyframe even when
+        # the bootstrap created a keyframe or reset
+        self.frames_since_kf += 1
+        self._log_pose(time, False)
+        return self.T_wc()
+
+    def _finalize_mono(self, stats_np: np.ndarray, time):
+        """Initialized mono frame: pose (or P3P recovery), keyframe decision
+        and processing (the JAX package's synchronous ``_finalize_mono``)."""
+        pose_ok = stats_np[0] > 0.5
+        n_tracked, n_3d = int(stats_np[1]), int(stats_np[2])
+        if pose_ok:
+            self._pose_from_stats(stats_np)
+        elif n_3d >= 10:
+            # trackMono shares computePose's P3P recovery
+            # (visual_front_end.cpp:659-851)
+            pose_ok = self._try_p3p_recovery()
+        need_kf = fe_mod.check_new_kf(
+            self.params, n_tracked, n_3d, float(stats_np[4]),
+            self.frames_since_kf, self.n3d_at_kf, pose_ok,
+            time_since_kf=time - self.kf_time)
+        if need_kf:
+            with record_function("1.KF_Processing"):
+                self._create_keyframe(None, time, stereo=False)
+        else:
+            self.frames_since_kf += 1
+        self._log_pose(time, need_kf)
+
+    def _try_mono_init(self, time) -> bool:
+        """Essential-matrix bootstrap against the first keyframe at the
+        arbitrary scale 0.25 (visual_front_end.cpp:855-984)."""
+        m = self.map
+        kf0 = m.keyframes.get(self.cur_kfid)
+        if kf0 is None:
+            return False
+        kp_lmid, kp_valid, kp_bv = (a.cpu().numpy() for a in (
+            self.kps.lmid, self.kps.valid, self.kps.bv))
+        K = self.kp_cap
+        bv0 = np.zeros((K, 3), np.float32)
+        bv0[:, 2] = 1.0
+        ok = np.zeros(K, bool)
+        for s in np.nonzero(kp_valid & (kp_lmid >= 0))[0]:
+            slot0 = kf0.kp_slot_of(int(kp_lmid[s]))
+            if slot0 >= 0:
+                bv0[s] = kf0.bv[slot0]
+                ok[s] = True
+        if ok.sum() < 30:
+            return False
+        bv0_d, bv_d = self._dev(bv0), self._dev(kp_bv)
+        ok_d = torch.from_numpy(ok).to(self.device)
+        focal = 0.5 * (self.cam_l.fx + self.cam_l.fy)
+        res = mvg.essential_ransac(
+            bv0_d, bv_d, ok_d, err_th=self.params.fransac_err / focal,
+            idx=mvg.draw_samples(ok_d, 512, 5, self._gen(self.frame_id)))
+        T_rel = mvg.decompose_essential(res.model, bv0_d, bv_d, res.inliers)
+        success, n_in, R_wc, t_wc = (a.cpu().numpy() for a in (
+            res.success, res.n_inliers, T_rel.R, T_rel.t))
+        if not bool(success) or int(n_in) < 0.5 * ok.sum():
+            return False
+        # T_rel: current camera in KF0's frame with |t| = 1; scale 0.25,
+        # then chain through KF0's own world pose
+        T_wc = np.eye(4, dtype=np.float32)
+        T_wc[:3, :3] = R_wc
+        T_wc[:3, 3] = t_wc * 0.25
+        self.T_cw = (np.linalg.inv(T_wc.astype(np.float64))
+                     @ kf0.T_cw.astype(np.float64)).astype(np.float32)
+        self._sync_pose_to_device()
+        # KF + temporal triangulation against KF0 gives the initial map
+        self._create_keyframe(None, time, run_ba=False, stereo=False)
+        if m.n_3d() > 30:
+            self.initialized = True
+            return True
+        # bad init -> full reset (mapper.cpp:129-144)
+        self.reset()
+        return False
+
+    # ------------------------------------------------------------------
+    def _create_keyframe(self, imr, time, run_ba: bool = True,
+                         stereo: bool = True):
         """Keyframe creation: the device step (detect -> insert -> describe
-        -> stereo match -> triangulate), then the host commit."""
+        -> stereo match -> triangulate; mono: temporal triangulation only),
+        then the host commit."""
         p = self.params
         kfid = self.map.next_kf_id
         prev_kfid = self.cur_kfid
@@ -257,8 +416,10 @@ class SlamSystem:
                        * (self.cam_l.width // p.nmaxdist))
             cand_ids = self.map.alloc_landmarks(n_cells)
             anc = self._assemble_anchor_data(prev_kfid)
-            right_pyr = fe_mod.preprocess(self._to_device_u8(imr),
-                                          p.nklt_pyr_lvl)
+            right_pyr = (fe_mod.preprocess(self._to_device_u8(imr),
+                                           p.nklt_pyr_lvl, p.use_clahe,
+                                           p.fclahe_val)
+                         if stereo else self.fe_state.pyr)
             lm_pos, lm_is3d = self.map.device_landmarks()
             d = self.device
             res = mapper_mod.kf_step(
@@ -274,7 +435,7 @@ class SlamSystem:
                 nlevels=p.nklt_pyr_lvl, win=p.nklt_win_size,
                 max_iters=p.nmax_iter, fb_dist=p.fmax_fbklt_dist,
                 klt_err=p.nklt_err, epi_th_px=p.fepi_th,
-                use_sad_prior=self._rows_aligned)
+                use_sad_prior=self._rows_aligned, stereo=stereo)
             self._set_kps(res.kps)
             kp = res.kps
             fetch = tuple(a.cpu().numpy() for a in (
@@ -293,7 +454,8 @@ class SlamSystem:
         self._commit_kf(dict(kfid=kfid, time=time, T_cw=self.T_cw.copy(),
                              fetch=fetch, cand_ids=cand_ids, anc=anc,
                              n_cells=n_cells, desc_dev=res.desc,
-                             desc_ok_dev=res.desc_ok, run_ba=run_ba))
+                             desc_ok_dev=res.desc_ok, run_ba=run_ba,
+                             stereo=stereo))
 
     # ------------------------------------------------------------------
     def _commit_kf(self, pending):
@@ -322,23 +484,27 @@ class SlamSystem:
                 self.detector_quality, n_new,
                 max(pending["n_cells"] - occupied, 1))
 
-            # newly triangulated = stereo success on a not-yet-3d landmark
-            sl = np.clip(k_lmid, 0, self.map.cap - 1)
-            was3d = self.map.lm_is3d[sl] & (k_lmid >= 0)
-            newly = tri_ok & k_valid & (k_lmid >= 0) & ~was3d
-            if newly.any():
-                bearings = k_bv[newly] / np.maximum(k_bv[newly][:, 2:], 1e-9)
-                self.map.set_positions(
-                    k_lmid[newly], Xw_np[newly], anchor_kf=kfid,
-                    bearings=bearings,
-                    lams=1.0 / np.maximum(depth_np[newly], 1e-6))
-            self.median_depth = float(med_depth)
+            stereo = pending["stereo"]
+            if stereo:
+                # newly triangulated = stereo success on a not-yet-3d landmark
+                sl = np.clip(k_lmid, 0, self.map.cap - 1)
+                was3d = self.map.lm_is3d[sl] & (k_lmid >= 0)
+                newly = tri_ok & k_valid & (k_lmid >= 0) & ~was3d
+                if newly.any():
+                    bearings = k_bv[newly] / np.maximum(k_bv[newly][:, 2:], 1e-9)
+                    self.map.set_positions(
+                        k_lmid[newly], Xw_np[newly], anchor_kf=kfid,
+                        bearings=bearings,
+                        lams=1.0 / np.maximum(depth_np[newly], 1e-6))
+                self.median_depth = float(med_depth)
 
-            # temporal-triangulation commits, per anchor keyframe
+            # temporal-triangulation commits, per anchor keyframe (in
+            # stereo only for landmarks the stereo step left 2D)
             anc_bv, anc_first = anc[2], anc[5]
             sl = np.clip(k_lmid, 0, self.map.cap - 1)
-            tnew = (tt_ok & k_valid & (k_lmid >= 0) & (anc_first >= 0)
-                    & ~self.map.lm_is3d[sl])
+            tnew = tt_ok & k_valid & (k_lmid >= 0) & (anc_first >= 0)
+            if stereo:
+                tnew &= ~self.map.lm_is3d[sl]
             if tnew.any():
                 slots = np.nonzero(tnew)[0]
                 ids = k_lmid[slots]

@@ -4,9 +4,10 @@ triangulation (port of the slice path of ``ov2slam_tpu/slam/mapper.py``).
 Replaces the reference's Mapper + the detection/stereo side of MapManager
 (mapper.cpp, map_manager.cpp:286-611): on each keyframe, detect new
 keypoints in free grid cells (single-scale min-eig detector), BRIEF-describe
-everything, KLT-match left->right with depth / SAD-row priors and an
-epipolar gate, triangulate stereo matches, and temporally triangulate
-leftover 2D keypoints against their first observing keyframe. The host
+everything, in stereo KLT-match left->right with depth / SAD-row priors and
+an epipolar gate and triangulate the matches, and temporally triangulate
+leftover 2D keypoints against their first observing keyframe (the only
+triangulation in mono). The host
 assembles anchor data and commits the results into the map store.
 """
 
@@ -212,12 +213,14 @@ def kf_step(left_pyr, right_pyr, kps: FrameKps, lm_pos, lm_is3d,
             anc_R, anc_t, anc_bv, anc_lmid, anc_ok, cellsize: int,
             nlevels: int = 3, win: int = 9, max_iters: int = 30,
             fb_dist: float = 0.5, klt_err: float = 30.0,
-            epi_th_px: float = 2.0, use_sad_prior: bool = False
-            ) -> KFStepResult:
-    """The device side of stereo keyframe creation: grid detection ->
-    keypoint insertion -> BRIEF -> stereo matching -> stereo and temporal
-    triangulation. Anchor data (anc_*) is host-assembled from the previous
-    keyframe record and applies only while a slot still holds anc_lmid."""
+            epi_th_px: float = 2.0, use_sad_prior: bool = False,
+            stereo: bool = True) -> KFStepResult:
+    """The device side of keyframe creation: grid detection -> keypoint
+    insertion -> BRIEF -> (stereo matching -> stereo triangulation) ->
+    temporal triangulation. Anchor data (anc_*) is host-assembled from the
+    previous keyframe record and applies only while a slot still holds
+    anc_lmid. With stereo=False (mono) there is no right image: only
+    temporal triangulation runs, with no minimum baseline."""
     img = left_pyr[0].to(torch.float32)
     resp = det_mod.min_eig_response(img)
     # confine detection to the camera's valid ROI (no-op for a full ROI)
@@ -232,6 +235,27 @@ def kf_step(left_pyr, right_pyr, kps: FrameKps, lm_pos, lm_is3d,
 
     desc, desc_ok = desc_mod.describe_brief(img, kps2.px, kps2.valid)
     extra_desc, extra_ok = desc_mod.describe_brief(img, det.points2, det.valid2)
+
+    def temporal(kpsX):
+        guard = (anc_ok & (kpsX.lmid == anc_lmid) & kpsX.valid & ~kpsX.is3d
+                 & (kpsX.lmid >= 0))
+        tt = triangulate_temporal(kpsX._replace(valid=guard), R_cw, t_cw,
+                                  anc_R, anc_t, anc_bv, guard, cam_l,
+                                  min_trans=0.01 if stereo else 0.0)
+        return kpsX._replace(is3d=kpsX.is3d | (tt.ok & kpsX.valid)), tt
+
+    if not stereo:
+        K = kps2.cap
+        kps2b, tt = temporal(kps2)
+        z = torch.zeros(K, dtype=img.dtype, device=img.device)
+        return KFStepResult(
+            kps=kps2b, desc=desc, desc_ok=desc_ok,
+            tri_ok=torch.zeros(K, dtype=torch.bool, device=img.device),
+            tri_Xw=torch.zeros((K, 3), dtype=img.dtype, device=img.device),
+            tri_depth=z, med_depth=torch.as_tensor(
+                depth_prior, dtype=img.dtype, device=img.device),
+            extra_desc=extra_desc, extra_ok=extra_ok, tt_ok=tt.ok, tt_Xw=tt.Xw,
+            tt_depth_anchor=tt.depth_anchor)
 
     sm = stereo_match(left_pyr, right_pyr, kps2, lm_pos, lm_is3d, cam_l, cam_r,
                       R_cw, t_cw, R_rl, t_rl, depth_prior, nlevels=nlevels,
@@ -257,11 +281,7 @@ def kf_step(left_pyr, right_pyr, kps: FrameKps, lm_pos, lm_is3d,
         rpx=torch.where(has_right[:, None], unrpx, torch.zeros_like(unrpx)),
         has_right=has_right)
 
-    guard = (anc_ok & (kps3.lmid == anc_lmid) & kps3.valid & ~kps3.is3d
-             & (kps3.lmid >= 0))
-    tt = triangulate_temporal(kps3._replace(valid=guard), R_cw, t_cw, anc_R,
-                              anc_t, anc_bv, guard, cam_l, min_trans=0.01)
-    kps4 = kps3._replace(is3d=kps3.is3d | (tt.ok & kps3.valid))
+    kps4, tt = temporal(kps3)
     return KFStepResult(
         kps=kps4, desc=desc, desc_ok=desc_ok, tri_ok=tri.ok, tri_Xw=tri.Xw,
         tri_depth=tri.depth, med_depth=med, extra_desc=extra_desc,

@@ -1,6 +1,7 @@
 """GPU-only tests of the port: the CUDA kernels (the per-chunk LK loop
 ``lk_iterate`` and the fused forward-backward KLT ``klt_track``) against
-their plain versions, and tracking through the kernel against the CPU path.
+their plain versions, tracking through the kernel against the CPU path, and
+the plain-PyTorch RANSACs and CLAHE on the card against the CPU.
 
 This file imports neither jax nor OpenCV, so it runs on a GPU machine that
 has neither (``tests/conftest.py`` imports jax, hence ``--noconftest``):
@@ -15,7 +16,11 @@ on the same inputs on the card: status equal on 99%, points to 2e-3 px and
 error to 1e-3 where both tracked (the same f32 GN steps in another
 summation order; LK resolves 0.01 px). Full tracking through the kernel vs
 the CPU plain path: status equal on 99%, points to 1e-2 px (the pyramid
-filters also run on the card, in another summation order).
+filters also run on the card, in another summation order). RANSACs on the
+card vs the CPU with the same sample indices (cuSOLVER and LAPACK round the
+batched solves differently, so valid 5-point models may differ in which
+roots they hold): inlier masks equal on 99%, rotation within 1e-3 rad,
+translation direction within 1e-2 rad. CLAHE: 1e-2 gray levels.
 """
 
 import numpy as np
@@ -162,3 +167,130 @@ def test_fb_klt_through_kernel_matches_cpu(cuda, frames):
     both = sc & sg
     np.testing.assert_allclose(rg.points.cpu().numpy()[both],
                                rc.points.numpy()[both], atol=1e-2)
+
+
+def _rot(w):
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def _angle(R):
+    return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)))
+
+
+def _two_view_scene(seed=23, N=200, n_out=60):
+    """Bearings of a general scene in two views (b-to-a pose R, t), 0.3 px
+    noise, n_out outliers; numpy only."""
+    rng = np.random.default_rng(seed)
+    X = np.c_[rng.uniform(-3, 3, (N, 2)), 6.0 + rng.uniform(0, 3, N)]
+    R, t = _rot(rng.normal(size=3) * 0.3), rng.normal(size=3)
+    Xb = (X - t) @ R                                  # R^T (X - t)
+    bv_a = X / np.linalg.norm(X, axis=1, keepdims=True)
+    bv_b = Xb / np.linalg.norm(Xb, axis=1, keepdims=True)
+    bv_b = bv_b + rng.normal(0, 0.3 / 450.0, bv_b.shape)
+    out = rng.choice(N, n_out, replace=False)
+    Y = np.c_[rng.uniform(-3, 3, (n_out, 2)), 6.0 + rng.uniform(0, 3, n_out)]
+    bv_b[out] = Y / np.linalg.norm(Y, axis=1, keepdims=True)
+    bv_b /= np.linalg.norm(bv_b, axis=1, keepdims=True)
+    return bv_a.astype(np.float32), bv_b.astype(np.float32), R, t
+
+
+def _cpu_and_card(fn, cuda, *arrays):
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = fn(*(torch.from_numpy(np.asarray(a)).to(dev)
+                             for a in arrays))
+    torch.cuda.synchronize()
+    return out["cpu"], out[str(cuda)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["nister", "8pt"])
+def test_essential_ransac_on_card_matches_cpu(cuda, solver):
+    from ov2slam_tpu_torch.ops import mvg
+    bv_a, bv_b, R, t = _two_view_scene()
+    valid = np.ones(len(bv_a), bool)
+    s = 5 if solver == "nister" else 8
+    idx = np.random.default_rng(1).integers(0, len(bv_a), (256, s))
+
+    def run(a, b, v, i):
+        r = mvg.essential_ransac(a, b, v, 3.0 / 450.0, idx=i, solver=solver)
+        T = mvg.decompose_essential(r.model, a, b, r.inliers)
+        return r, T
+
+    (rc, Tc), (rg, Tg) = _cpu_and_card(run, cuda, bv_a, bv_b, valid, idx)
+    assert bool(rc.success) and bool(rg.success)
+    ic, ig = rc.inliers.numpy(), rg.inliers.cpu().numpy()
+    assert (ic == ig).mean() >= 0.99
+    assert _angle(Tc.R.numpy().T @ Tg.R.cpu().numpy()) < 1e-3
+    cos = abs(float(Tc.t.numpy() @ Tg.t.cpu().numpy()))
+    assert np.arccos(min(cos, 1.0)) < 1e-2
+    assert _angle(Tg.R.cpu().numpy().T @ R) < 0.03
+
+
+@pytest.mark.cuda
+def test_p3p_ransac_on_card_matches_cpu(cuda):
+    from ov2slam_tpu_torch.ops import mvg
+    rng = np.random.default_rng(15)
+    N = 150
+    Xc = np.c_[rng.uniform(-3, 3, (N, 2)), 6.0 + rng.uniform(0, 3, N)]
+    R, t = _rot(rng.normal(size=3) * 0.8), rng.normal(size=3)
+    Xw = ((Xc - t) @ R).astype(np.float32)           # Xc = R Xw + t
+    bv = Xc / np.linalg.norm(Xc, axis=1, keepdims=True)
+    bv = bv + rng.normal(0, 0.3 / 450.0, bv.shape)
+    out = rng.choice(N, 45, replace=False)
+    bv[out] = rng.normal(size=(45, 3)) * 0.1 + [0, 0, 1]
+    bv = (bv / np.linalg.norm(bv, axis=1, keepdims=True)).astype(np.float32)
+    idx = rng.integers(0, N, (256, 3))
+
+    def run(X, b, v, i):
+        return mvg.p3p_ransac(X, b, v, 3.0 / 450.0, idx=i)
+
+    (Tc, ic, _, okc), (Tg, ig, _, okg) = _cpu_and_card(
+        run, cuda, Xw, bv, np.ones(N, bool), idx)
+    assert bool(okc) and bool(okg)
+    assert (ic.numpy() == ig.cpu().numpy()).mean() >= 0.99
+    assert _angle(Tc.R.numpy().T @ Tg.R.cpu().numpy()) < 1e-3
+    np.testing.assert_allclose(Tg.t.cpu().numpy(), Tc.t.numpy(), atol=1e-2)
+    assert _angle(Tg.R.cpu().numpy().T @ R) < 0.02
+
+
+@pytest.mark.cuda
+def test_ransacs_and_clahe_never_wait_for_the_card(cuda):
+    """Given their sample indices on the card, both RANSACs and CLAHE
+    enqueue their work without one host sync (PyTorch's sync debug mode
+    raises on the first). The first call builds the constant tables."""
+    from ov2slam_tpu_torch.ops import mvg
+    bv_a, bv_b, _, _ = _two_view_scene()
+    a, b = (torch.from_numpy(x).to(cuda) for x in (bv_a, bv_b))
+    v = torch.ones(len(bv_a), dtype=torch.bool, device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    i5, i8, i3 = (mvg.draw_samples(v, 64, s, gen) for s in (5, 8, 3))
+    img = torch.rand(203, 317, device=cuda) * 255.0
+    calls = [lambda: mvg.essential_ransac(a, b, v, 3.0 / 450.0, idx=i5),
+             lambda: mvg.essential_ransac(a, b, v, 3.0 / 450.0, idx=i8,
+                                          solver="8pt", lmeds=True),
+             lambda: mvg.p3p_ransac(a * 7.0, b, v, 3.0 / 450.0, idx=i3),
+             lambda: im.clahe(img)]
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_clahe_on_card_matches_cpu(cuda, frames):
+    img = frames[0][0]
+    for shape in ((480, 752), (203, 317)):
+        a = np.ascontiguousarray(img[:shape[0], :shape[1]])
+        oc, og = _cpu_and_card(lambda x: im.clahe(x, clip_limit=3.0), cuda, a)
+        assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-2

@@ -95,6 +95,73 @@ def test_track_frame_matches_jax(jax_run):
                                atol=1e-2)
 
 
+@pytest.fixture(scope="module")
+def far_pair():
+    """JAX state after frame 0 of a step-0.05 sequence and the pyramids of
+    frames 0 and 4 (~11 px of parallax: the epipolar gate's 6 px passes)."""
+    fl, fr, _ = syn.render_sequence(n_frames=5, step=0.05)
+    js = JSlam(JParams.from_dict(slice_params()))
+    js.process_stereo(fl[0], fr[0], 0.0)
+    return dict(js=js, state=interop.fe_state(js.fe_state),
+                lm=[np.asarray(a) for a in js.map.device_landmarks()],
+                p0=_pyr(fl[0]), p4=_pyr(fl[4]))
+
+
+def test_track_frame_epipolar_and_p3p_match_jax(far_pair, monkeypatch):
+    """track_frame with the epipolar filter and the P3P start, both
+    packages from the same state; the port's RANSAC samples are the ones
+    JAX draws in its track_frame (the filter's from `key`, the P3P start's
+    from split(key)[1], with p = mask / sum)."""
+    import jax
+    from ov2slam_tpu_torch.ops import mvg as tmvg
+    js, st = far_pair["js"], far_pair["state"]
+    lm_pos, lm_is3d = far_pair["lm"]
+    K, key = 64, jax.random.PRNGKey(11)
+    drawn = []
+
+    def jax_draw(valid, n_hyps, size):
+        k = key if size == 5 else jax.random.split(key, 2)[1]
+        v = n(valid).astype(np.float32)
+        idx = jax.random.choice(k, len(v), shape=(n_hyps, size),
+                                p=jnp.asarray(v / max(v.sum(), 1.0)))
+        drawn.append(size)
+        return t(np.asarray(idx))
+
+    ransacs = []
+    real = tmvg.essential_ransac
+    monkeypatch.setattr(tmvg, "essential_ransac",
+                        lambda *a, **k: ransacs.append(real(*a, **k)) or ransacs[-1])
+    R, tt = n(st.R_cw), n(st.t_cw)
+    kps_np = {k_: n(getattr(st.kps, k_)) for k_ in st.kps._fields}
+    kps_j = jfe.FrameKps(**{k_: jnp.asarray(v.astype(np.int32) if k_ == "lmid" else v)
+                            for k_, v in kps_np.items()})
+    rj = jfe.track_frame(
+        tuple(map(jnp.asarray, far_pair["p0"])), tuple(map(jnp.asarray, far_pair["p4"])),
+        kps_j, jnp.asarray(lm_pos), jnp.asarray(lm_is3d), js.cam_l, jnp.asarray(R),
+        jnp.asarray(tt), jnp.asarray(R), jnp.asarray(tt), key, do_epipolar=True,
+        n_ransac_hyps=K, dop3p=True)
+    rt = tfe.track_frame(
+        tuple(map(t, far_pair["p0"])), tuple(map(t, far_pair["p4"])), st.kps,
+        t(lm_pos), t(lm_is3d), interop.camera(js.cam_l), st.R_cw, st.t_cw,
+        st.R_cw, st.t_cw, do_epipolar=True, n_ransac_hyps=K, dop3p=True,
+        draw=jax_draw)
+    # the gate fired, the filter applied, the P3P start ran
+    assert drawn == [5, 3] and len(ransacs) == 1
+    eres = ransacs[0]
+    assert bool(eres.success)
+    assert int(eres.n_inliers) > 0.5 * int(rt.n_tracked)
+    assert not (n(rt.kps.valid) & ~n(eres.inliers)).any()
+    assert bool(rt.pose_ok) and bool(rj.pose_ok)
+    np.testing.assert_allclose(n(rt.T_cw_R), n(rj.T_cw_R), atol=1e-4)
+    np.testing.assert_allclose(n(rt.T_cw_t), n(rj.T_cw_t), atol=1e-4)
+    vj, vt = n(rj.kps.valid), n(rt.kps.valid)
+    assert vj.sum() > 100 and (vj == vt).mean() >= 0.99
+    assert abs(int(rt.n_inliers) - int(rj.n_inliers)) <= 2
+    assert abs(int(rt.n_3d) - int(rj.n_3d)) <= 2
+    np.testing.assert_allclose(float(rt.parallax_med), float(rj.parallax_med),
+                               atol=1e-2)
+
+
 def test_frame_step_from_jax_state(jax_run):
     """Frame 1 from the JAX state after frame 0: both packages' full step."""
     js, fl = jax_run["js"], jax_run["fl"]
@@ -209,16 +276,28 @@ UNSUPPORTED = {
 }
 
 
+# settings that were outside the stereo slice and are ported since
+PORTED = ("mono", "use_clahe", "doepipolar", "dop3p")
+
+
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_settings_outside_the_slice_raise(name):
+    """Every setting outside the ported paths raises naming its ROADMAP
+    item; the four ported since (PORTED) now build a system."""
     d = slice_params()
     d.update(UNSUPPORTED[name])
+    if name in PORTED:
+        s = SlamSystem(SlamParams.from_dict(d), device="cpu")
+        assert getattr(s.params, name)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(SlamParams.from_dict(d), device="cpu")
 
 
 def test_slice_settings_accepted():
     s = SlamSystem(SlamParams.from_dict(slice_params()), device="cpu")
+    # the repo's synthetic config as it is (doepipolar on) builds too
+    SlamSystem(SlamParams.from_dict(syn.slam_params_dict()), device="cpu")
     assert s.kp_cap == 192 and s._rows_aligned
     # born-rectified input with a distorted camera is still the slice
     d = slice_params()
