@@ -38,10 +38,28 @@ Phases (any failure raises; nothing falls back to the CPU):
    ``SlamSystem.process_mono`` with the front-end settings the presets
    switch on (``doepipolar``, ``dop3p``, ``use_clahe``): initialization,
    Sim(3)-aligned ATE, trajectory files, exactly one ``klt_track`` launch
-   in every frame after the first, host syncs by call site.
+   in every frame after the first, host syncs by call site;
+9. presets: the five reference tiers without loop closing built from the
+   shipped preset files (``fast_stereo``, ``accurate_stereo_nolc``,
+   ``accurate_mono``, ``average_mono``, ``fast_mono``;
+   ``scripts/torch_preset_tiers.py``), only the camera replaced by the
+   distorted EuRoC rig of ``tests/hard_synthetic.py``, run as shipped
+   (``force_realtime``: pipelined frames, staged keyframe commits, deferred
+   BA; FAST and the P3P start in the ``fast`` tiers) over the first
+   ``TIER_FRAMES`` frames of ``render_hard_sequence(n_frames=1000)``, then
+   flushed: one finite pose per frame, the in-flight FIFO at
+   ``pipeline_depth``, staged commits and deferred BA writebacks landing
+   (stereo), exactly one ``klt_track`` launch per tracking call beside one
+   per keyframe stereo match, host syncs per frame by call site, and each
+   ATE within 1.5x + 5 mm of the JAX package's on the same frames
+   (``REF_ATE``, measured on the CPU by the same script);
+10. rect: ``accurate_stereo_rect`` (``bdo_stereo_rect``, every frame
+   remapped bicubic on the card) on the same frames, and the 60-frame
+   synthetic slice with ``btrack_keyframetoframe`` (KLT templates from the
+   last keyframe), under the same checks.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the ``kernels`` line sums them over the stereo and mono slices.
+after; the ``kernels`` line sums them over every path.
 The last three lines of standard output are the card's ``nvidia-smi`` name
 and power limit, a JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -49,7 +67,8 @@ and power limit, a JSON object describing the kernels, and
 ``python3 chip_smoke.py --profile DIR`` also runs the slice before and after
 the fused kernel, in turns (fused, per-chunk, fused, per-chunk; frames
 1-59 each), then with the epipolar filter on and off in turns, frames
-1-20 of each KLT path and frames 20-29 of the mono slice under
+1-20 of each KLT path, frames 20-29 of the mono slice and frames 20-39 of
+the pipelined ``accurate_stereo_nolc`` and ``fast_mono`` tiers under
 ``torch.profiler``: fps, device idle share and device operations per frame,
 with the full tables in ``DIR/torch_profile_<slice>.txt``.
 """
@@ -82,9 +101,12 @@ from ov2slam_tpu_torch.ops import _build, klt, lk  # noqa: E402
 from ov2slam_tpu_torch.ops import image as im  # noqa: E402
 from ov2slam_tpu_torch.ops import mvg  # noqa: E402
 from ov2slam_tpu_torch.slam import frontend as fe_mod  # noqa: E402
+from ov2slam_tpu_torch.slam import mapper as mapper_mod  # noqa: E402
 from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
+sys.path.insert(0, str(ROOT / "scripts"))
 import klt_inputs  # noqa: E402
 import synthetic_np as syn  # noqa: E402
+import torch_preset_tiers as tiers  # noqa: E402
 
 WS, WIN, EPS, MARGIN = 20, 9, 0.01, 4.0
 N_FRAMES, STEP, YAW = 60, 0.03, 0.0015
@@ -97,7 +119,8 @@ N_FRAMES, STEP, YAW = 60, 0.03, 0.0015
 # tests/test_torch_lk.py. klt_track: status equal on 99% of points, points
 # to 2e-3 px and error to 1e-3 where both tracked (LK resolves 0.01 px).
 PTS_TOL, MASK_AGREE, ERR_TOL = 2e-3, 0.99, 1e-3
-KLT_CASES = (("temporal", 0.0), ("temporal", 1.5), ("stereo", 0.0))
+KLT_CASES = (("temporal", 0.0), ("temporal", 1.5), ("keyframe", 1.5),
+             ("stereo", 0.0))
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # FLOP/s outside the tensor cores. One GN step costs ~30 FLOPs per patch
 # sample (four hat weights, two taps per row, the blend, the residual and
@@ -110,6 +133,23 @@ HBM_BPS, F32_FLOPS, FLOPS_PER_SAMPLE = 3.35e12, 67e12, 30
 # tests/test_e2e_mono.py.
 INL_AGREE, ROT_TOL, DIR_TOL, CLAHE_TOL, MONO_ATE = 0.99, 1e-3, 1e-2, 0.01, 0.08
 MONO_STEP = 0.05
+# the preset and rect tiers: frames of render_hard_sequence(n_frames=1000)
+# (kf2f: the 60-frame slice), and each tier's ATE (m, Sim(3)-aligned for
+# mono) of the JAX package on the same frames, on the CPU
+# (`JAX_PLATFORMS=cpu python3 scripts/torch_preset_tiers.py --backend jax`);
+# the card must stay within ATE_SLACK * ref + ATE_ABS
+TIER_FRAMES = 120
+PRESET_TIERS = ("fast_stereo", "accurate_stereo_nolc", "accurate_mono",
+                "average_mono", "fast_mono")
+RECT_TIERS = ("accurate_stereo_rect", "kf2f")
+REF_ATE = {"fast_stereo": 0.011895194593247387,
+           "accurate_stereo_nolc": 0.010244281714802394,
+           "accurate_mono": 0.020605251339490118,
+           "average_mono": 0.024823707626498864,
+           "fast_mono": 0.022862843679698763,
+           "accurate_stereo_rect": 0.013126949970873455,
+           "kf2f": 0.0005095717850380572}
+ATE_SLACK, ATE_ABS = 1.5, 0.005
 
 
 def log(msg: str):
@@ -806,6 +846,102 @@ def phase_mono(dev):
 
 
 @contextlib.contextmanager
+def counting_stereo_kf_steps(calls: list):
+    """Record every keyframe step that runs a stereo match (one klt_track
+    launch each)."""
+    real = mapper_mod.kf_step
+
+    def rec(*a, **k):
+        if k.get("stereo", True):
+            calls.append(1)
+        return real(*a, **k)
+    mapper_mod.kf_step = rec
+    try:
+        yield
+    finally:
+        mapper_mod.kf_step = real
+
+
+def phase_tiers(tag: str, dev, names, hard):
+    """Each tier of `names` through SlamSystem on the card, as
+    scripts/torch_preset_tiers.py runs it, with this smoke's checks.
+    Returns the launches of both kernels over the phase."""
+    total = {"klt_track": 0, "lk_iterate": 0}
+    rows = {}
+    for name in names:
+        d = tiers.tier_dict(name)
+        mono = bool(d.get("mono"))
+        frames = hard if tiers.TIERS[name] else tiers.kf2f_frames()
+        slam = SlamSystem(SlamParams.from_dict(d), device=dev)
+        syncs, per_call, stereo_kf = collections.Counter(), [], []
+
+        def call(i, fn):
+            k0, s0 = klt.LAUNCHES, len(stereo_kf)
+            count_syncs(fn, syncs)
+            per_call.append(klt.LAUNCHES - k0 - (len(stereo_kf) - s0))
+
+        klt.LAUNCHES = lk.LAUNCHES = 0
+        gate = []
+        with counting_stereo_kf_steps(stereo_kf), recording_essential_ransac(gate):
+            row = tiers.run_tier(slam, frames, mono, call=call,
+                                 sync=torch.cuda.synchronize)
+        total["klt_track"] += klt.LAUNCHES
+        total["lk_iterate"] += lk.LAUNCHES
+        n = row["frames"]
+        poses = np.stack(slam.logger.poses_wc)
+        ref = REF_ATE[name]
+        pc = slam.pipeline_counts
+        rows[name] = row
+        log(f"[{tag}] {name}: ATE {row['ate']:.5f} m (JAX CPU {ref:.5f}, "
+            f"bound {ATE_SLACK * ref + ATE_ABS:.5f}), {row['fps']:.2f} fps "
+            f"over frames 1-{n - 1} with the flush, keyframes "
+            f"{row['keyframes']}, landmarks {row['landmarks']}, in-flight "
+            f"depth {row['max_inflight']} (pipeline_depth "
+            f"{slam.params.pipeline_depth if slam.params.force_realtime else 0}),"
+            f" staged commits {pc['kf_commit_lag']} KF / {pc['lmm_commit_lag']}"
+            f" merge, deferred BA writebacks {pc['ba_writeback']}; klt_track "
+            f"{klt.LAUNCHES} ({len(stereo_kf)} in keyframe stereo matches, "
+            f"per tracking call {sorted(set(per_call[1:]))}), lk_iterate "
+            f"{lk.LAUNCHES}; epipolar gate fired {sum(c == 'track_frame' for c, _ in gate)}"
+            f" times")
+        log_syncs(f"{tag} {name}", syncs, n)
+        if slam.rect_maps is not None:
+            remap_cost(slam, frames[0][0])
+        assert poses.shape == (n, 4, 4) and np.isfinite(poses).all(), (
+            f"{name}: {len(poses)} poses logged for {n} frames")
+        assert slam.initialized, f"{name} never initialized"
+        assert row["ate"] <= ATE_SLACK * ref + ATE_ABS, (
+            f"{name}: ATE {row['ate']:.4f} m vs JAX {ref:.4f} m")
+        assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
+            f"{name}: tracking calls must launch klt_track once: {per_call}")
+        assert lk.LAUNCHES == 0, f"{name}: the per-chunk LK path ran"
+        if slam.params.force_realtime:
+            assert row["max_inflight"] == slam.params.pipeline_depth, row
+            if not mono:
+                assert pc["kf_commit_lag"] >= 1 and pc["ba_writeback"] >= 1, (
+                    f"{name}: no staged commit or deferred BA landed: {pc}")
+    return total, rows
+
+
+def remap_cost(slam, img):
+    """The per-frame rectification of one image: host ms per synchronised
+    `_rectify` call (pinned upload + bicubic remap), device ms of the remap
+    alone back to back (CUDA events), its device operations, and the least
+    time of its bytes (image and grid read once, output written once)."""
+    grid = slam.rect_maps[0]
+    src = slam._upload(np.asarray(img, np.float32))
+    ms = host_ms(lambda: slam._rectify(img, 0), 20)
+    dev_ms = cuda_ms(lambda: im.remap_bicubic(src, grid), 20)
+    ops = profile_run(lambda: im.remap_bicubic(src, grid))[2]
+    nbytes = 4 * src.numel() + 8 * grid.shape[0] * grid.shape[1] + 4 * grid[..., 0].numel()
+    log(f"[rect] remap of one {tuple(src.shape)} image: {ms:.3f} ms per "
+        f"synchronised _rectify call (host clock), {dev_ms:.4f} ms per remap "
+        f"back to back (CUDA events), {ops} device operations per remap; "
+        f"bound {1e3 * nbytes / HBM_BPS:.5f} ms by bytes ({nbytes} B); two "
+        f"per stereo frame")
+
+
+@contextlib.contextmanager
 def klt_path(name: str):
     """Run the system's KLT calls through the fused kernel ("fused") or the
     per-chunk path ("per-chunk") for a before/after comparison."""
@@ -853,11 +989,11 @@ def phase_compare(dev, frames):
             f"{len(slam.map.keyframes)} keyframes")
 
 
-def phase_profile(dev, frames, mono_frames, out: Path, n_prof: int = 20):
+def phase_profile(dev, frames, mono_frames, out: Path, hard, n_prof: int = 20):
     """Frames 1..n_prof of the stereo slice once more under torch.profiler,
-    through each KLT path, and frames 20-29 of the mono slice: device busy
-    share, device operations per frame, and the host scopes and operations
-    that take the time."""
+    through each KLT path, frames 20-29 of the mono slice, and frames 20-39
+    of two pipelined preset tiers: device busy share, device operations per
+    frame, and the host scopes and operations that take the time."""
     fl, fr = frames
     out.mkdir(parents=True, exist_ok=True)
     for name in ("fused", "per-chunk"):
@@ -874,6 +1010,21 @@ def phase_profile(dev, frames, mono_frames, out: Path, n_prof: int = 20):
                                for i in range(20, 30)])
     log_profile("profile mono", "mono frames 20-29", 10, run,
                 out / "torch_profile_mono.txt")
+    L, R, _ = hard
+    for name in ("accurate_stereo_nolc", "fast_mono"):
+        slam = SlamSystem(SlamParams.from_dict(tiers.tier_dict(name)), device=dev)
+        mono = slam.params.mono
+
+        def step(i):
+            if mono:
+                slam.process_mono(L[i], i * tiers.FRAME_DT)
+            else:
+                slam.process_stereo(L[i], R[i], i * tiers.FRAME_DT)
+        for i in range(20):
+            step(i)
+        run = profile_run(lambda: [step(i) for i in range(20, 40)])
+        log_profile(f"profile {name}", f"{name} frames 20-39 (pipelined)", 20,
+                    run, out / f"torch_profile_{name}.txt")
 
 
 def main() -> int:
@@ -908,16 +1059,23 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     lk_worst, lk_times = phase_kernel(dev)
-    fl, fr, _ = syn.render_sequence(n_frames=2, step=0.05)
+    fl, fr, _ = syn.render_sequence(n_frames=4, step=0.05)
     klt_worst, klt_times = phase_klt(dev, (fl, fr))
     phase_ransac(dev)
     phase_clahe(dev, fl[0])
     launches, frames = phase_slice(dev)
     mono, mono_frames = phase_mono(dev)
-    launches = {k: launches[k] + mono[k] for k in launches}
+    t0 = time.perf_counter()
+    hard = tiers.hard_frames(TIER_FRAMES)
+    log(f"[presets] rendered {TIER_FRAMES} frames of the hard sequence in "
+        f"{time.perf_counter() - t0:.1f} s")
+    presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
+    rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
+    launches = {k: launches[k] + mono[k] + presets[k] + rect[k]
+                for k in launches}
     if args.profile:
         phase_compare(dev, frames)
-        phase_profile(dev, frames, mono_frames, args.profile)
+        phase_profile(dev, frames, mono_frames, args.profile, hard)
 
     k_ms, p_ms, b_ms, b_by = klt_times["temporal"]
     lk_ms, lp_ms, lb_ms, lb_by = lk_times[(192, 10)]

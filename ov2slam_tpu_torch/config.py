@@ -6,9 +6,9 @@ packages, as an immutable dataclass. The field set and the ``from_dict``
 parsing are the JAX package's, unchanged, so one dict configures both.
 
 The YAML files use OpenCV FileStorage syntax (``%YAML 1.0`` directive and
-``!!opencv-matrix`` tags); :func:`load_opencv_yaml` parses that dialect with
-PyYAML, imported only when a file is loaded: the GPU machine may not have it,
-and the port must import without it.
+``!!opencv-matrix`` tags); :func:`load_opencv_yaml` parses that dialect
+itself, without PyYAML (the GPU machine has none), to the same dict the JAX
+package's PyYAML loader gives.
 """
 
 from __future__ import annotations
@@ -26,33 +26,103 @@ import numpy as np
 # OpenCV-dialect YAML parsing
 # ---------------------------------------------------------------------------
 
-def _opencv_matrix_constructor(loader, node):
-    mapping = loader.construct_mapping(node, deep=True)
-    rows = int(mapping["rows"])
-    cols = int(mapping["cols"])
-    data = np.asarray(mapping["data"], dtype=np.float64)
-    return data.reshape(rows, cols)
+# plain-scalar resolution of YAML 1.1 (what PyYAML's SafeLoader applies)
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = {"yes": True, "Yes": True, "YES": True, "true": True, "True": True,
+         "TRUE": True, "on": True, "On": True, "ON": True,
+         "no": False, "No": False, "NO": False, "false": False,
+         "False": False, "FALSE": False, "off": False, "Off": False,
+         "OFF": False}
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+
+
+def _scalar(text: str):
+    """One plain or quoted scalar, typed as PyYAML's SafeLoader types it."""
+    s = text.strip()
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    if _NULL.match(s):
+        return None
+    if s in _BOOL:
+        return _BOOL[s]
+    if _INT.match(s):
+        return int(s.replace("_", ""))
+    if _FLOAT.match(s):
+        low = s.replace("_", "").lower()
+        if low.endswith("inf"):
+            return float("-inf") if low.startswith("-") else float("inf")
+        return float("nan") if low.endswith("nan") else float(low)
+    return s
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing `# comment` (a '#' after whitespace
+    outside quotes, or at the start)."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
 
 
 def load_opencv_yaml(path: str) -> Dict[str, Any]:
-    """Load an OpenCV FileStorage-style YAML file into a flat dict."""
-    import yaml
+    """Load an OpenCV FileStorage-style YAML file into a flat dict.
 
-    class _OpenCVLoader(yaml.SafeLoader):
-        pass
-
-    _OpenCVLoader.add_constructor("tag:yaml.org,2002:opencv-matrix",
-                                  _opencv_matrix_constructor)
-    # cv::FileStorage writes "!!opencv-matrix" which PyYAML resolves to the
-    # secondary tag handle; register the local form too for hand-written files.
-    _OpenCVLoader.add_constructor("!opencv-matrix", _opencv_matrix_constructor)
+    The dialect the presets use, parsed without PyYAML: the ``%YAML``
+    directive and ``---``, comments, flat ``key: value`` lines with YAML 1.1
+    plain-scalar typing, and ``!!opencv-matrix`` blocks (indented ``rows``,
+    ``cols``, ``dt`` and a ``data`` flow list that may span lines) that
+    become float64 (rows, cols) arrays. Anything else raises ValueError."""
     with open(path, "r") as f:
-        text = f.read()
-    # PyYAML only speaks YAML 1.1; drop the "%YAML 1.0"/"%YAML:1.0" directive
-    # line that cv::FileStorage emits (and the following "---" is fine).
-    text = re.sub(r"^%YAML[: ][0-9.]+\s*$", "", text, flags=re.M)
-    data = yaml.load(text, Loader=_OpenCVLoader)
-    return data or {}
+        lines = [_strip_comment(l).rstrip() for l in f.read().splitlines()]
+    out: Dict[str, Any] = {}
+    i = 0
+    while i < len(lines):
+        line = lines[i]
+        i += 1
+        if not line.strip() or line.startswith("%YAML") or line.strip() == "---":
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"{path}:{i}: unexpected indented line {line!r}")
+        key, sep, value = line.partition(":")
+        if not sep or (value and value[0] not in " \t"):
+            raise ValueError(f"{path}:{i}: not a 'key: value' line: {line!r}")
+        key, value = key.strip(), value.strip()
+        if value.startswith("!!opencv-matrix") or value.startswith("!opencv-matrix"):
+            fields: Dict[str, str] = {}
+            while i < len(lines) and (not lines[i].strip() or lines[i][0] in " \t"):
+                sub = lines[i].strip()
+                i += 1
+                if not sub:
+                    continue
+                k, _, v = sub.partition(":")
+                v = v.strip()
+                if k.strip() == "data":
+                    while v.count("[") > v.count("]") and i < len(lines):
+                        v += " " + lines[i].strip()
+                        i += 1
+                fields[k.strip()] = v
+            data = fields.get("data", "").strip()
+            if not (data.startswith("[") and data.endswith("]")):
+                raise ValueError(f"{path}: matrix {key!r} has no [data] list")
+            vals = [float(_scalar(x)) for x in data[1:-1].split(",") if x.strip()]
+            out[key] = np.asarray(vals, np.float64).reshape(
+                int(fields["rows"]), int(fields["cols"]))
+        elif value.startswith("["):
+            while value.count("[") > value.count("]") and i < len(lines):
+                value += " " + lines[i].strip()
+                i += 1
+            out[key] = [_scalar(x) for x in value[1:-1].split(",") if x.strip()]
+        else:
+            out[key] = _scalar(value)
+    return out
 
 
 def _get(d: Dict[str, Any], key: str, default=None):

@@ -1,5 +1,6 @@
-"""Camera models: pinhole (radtan) and fisheye (equidistant) (port of
-``ov2slam_tpu/core/camera.py``, without the rectification-map precompute).
+"""Camera models: pinhole (radtan) and fisheye (equidistant), undistortion
+and rectification maps, Bouguet stereo rectification (port of
+``ov2slam_tpu/core/camera.py``).
 
 The calibration is a frozen dataclass of Python floats: every per-point
 function below is batched tensor math on whatever device the points live
@@ -9,6 +10,7 @@ f32 device scalars do.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -169,3 +171,122 @@ def in_image(cam: Camera, px: torch.Tensor, border: float = 0.0) -> torch.Tensor
     u, v = px[..., 0], px[..., 1]
     return ((u >= cam.roi_x0 + border) & (u < cam.roi_x1 - border)
             & (v >= cam.roi_y0 + border) & (v < cam.roi_y1 - border))
+
+
+# ---------------------------------------------------------------------------
+# undistortion / rectification maps and stereo rectification (setup time)
+# ---------------------------------------------------------------------------
+
+def compute_undist_rect_map(cam: Camera, R_rect=None, K_new=None,
+                            device=None) -> torch.Tensor:
+    """Remap grid of the rectified (or undistorted) image: for each output
+    pixel, its (x, y) source in the raw image (cv::initUndistortRectifyMap;
+    camera_calibration.cpp:80-131). R_rect (3, 3) rotates raw-camera rays
+    into the rectified frame; K_new (3, 3) are the output intrinsics (cam's
+    own by default). Returns (cam.height, cam.width, 2) float32 on
+    `device`."""
+    H, W = cam.height, cam.width
+    if K_new is None:
+        fxn, fyn, cxn, cyn = cam.fx, cam.fy, cam.cx, cam.cy
+    else:
+        Kn = np.asarray(K_new, np.float32)
+        fxn, fyn, cxn, cyn = (float(Kn[0, 0]), float(Kn[1, 1]),
+                              float(Kn[0, 2]), float(Kn[1, 2]))
+    us = torch.arange(W, dtype=torch.float32, device=device)
+    vs = torch.arange(H, dtype=torch.float32, device=device)
+    vv, uu = torch.meshgrid(vs, us, indexing="ij")               # (H, W)
+    x = (uu - cxn) / fxn
+    y = (vv - cyn) / fyn
+    p = torch.stack([x, y, torch.ones_like(x)], dim=-1)           # (H, W, 3)
+    if R_rect is not None:
+        Rt = torch.as_tensor(np.asarray(R_rect, np.float32).T, device=device)
+        p = torch.einsum("ij,hwj->hwi", Rt, p)
+    pdn = _distort(cam, p[..., :2] / p[..., 2:3])
+    return torch.stack([cam.fx * pdn[..., 0] + cam.cx,
+                        cam.fy * pdn[..., 1] + cam.cy], dim=-1)
+
+
+def _rodrigues_log(Rm: np.ndarray) -> np.ndarray:
+    ct = np.clip((np.trace(Rm) - 1.0) * 0.5, -1.0, 1.0)
+    th = np.arccos(ct)
+    if th < 1e-10:
+        return np.zeros(3)
+    v = np.array([Rm[2, 1] - Rm[1, 2], Rm[0, 2] - Rm[2, 0], Rm[1, 0] - Rm[0, 1]])
+    return th / (2.0 * np.sin(th)) * v
+
+
+def _rodrigues_exp(w: np.ndarray) -> np.ndarray:
+    th = np.linalg.norm(w)
+    Wm = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    if th < 1e-10:
+        return np.eye(3) + Wm
+    return (np.eye(3) + np.sin(th) / th * Wm
+            + (1.0 - np.cos(th)) / (th * th) * (Wm @ Wm))
+
+
+def stereo_rectify(cam_l: Camera, cam_r: Camera, R_rl, t_rl):
+    """Bouguet stereo rectification (what the reference takes from
+    cv::stereoRectify; camera_calibration.cpp setUndistStereoMap,
+    ov2slam.cpp:342-425), in float64 on the host. R_rl, t_rl: the
+    right-from-left extrinsic (x_r = R x_l + t). Returns (R_rect_l,
+    R_rect_r, K_new, fx * baseline): the two rectifying rotations, the
+    shared intrinsics (mean fy, principal point at the image centre) and
+    the baseline in pixels. The presets' `alpha` (cv::stereoRectify's free
+    scaling) has no counterpart: the JAX package ignores it too."""
+    R = np.asarray(R_rl, np.float64)
+    t = np.asarray(t_rl, np.float64)
+    # split the relative rotation evenly between the two cameras
+    w = _rodrigues_log(R)
+    R_half_r = _rodrigues_exp(-w / 2.0)
+    R_half_l = _rodrigues_exp(w / 2.0)
+    t_new = R_half_r @ t
+    # rectifying basis: e1 along the baseline, pointing to +x
+    e1 = t_new / np.linalg.norm(t_new)
+    if abs(t_new[0]) >= abs(t_new[1]) and e1[0] < 0:
+        e1 = -e1
+    e2 = np.array([-e1[1], e1[0], 0.0])
+    nrm = np.linalg.norm(e2)
+    e2 = np.array([0.0, 1.0, 0.0]) if nrm < 1e-12 else e2 / nrm
+    Rw = np.stack([e1, e2, np.cross(e1, e2)], axis=0)
+    fx = 0.5 * (cam_l.fy + cam_r.fy)
+    K_new = np.array([[fx, 0.0, cam_l.width / 2.0],
+                      [0.0, fx, cam_l.height / 2.0],
+                      [0.0, 0.0, 1.0]], np.float64)
+    return Rw @ R_half_l, Rw @ R_half_r, K_new, fx * float(np.linalg.norm(t))
+
+
+def camera_with_intrinsics(cam: Camera, K_new, zero_dist: bool = False
+                           ) -> Camera:
+    """The camera with replaced working intrinsics (the rectified or
+    undistorted view), its distortion zeroed on request."""
+    K = np.asarray(K_new)
+    f32 = lambda v: float(np.float32(v))   # noqa: E731 — f32 calibration
+    return dataclasses.replace(
+        cam, fx=f32(K[0, 0]), fy=f32(K[1, 1]), cx=f32(K[0, 2]),
+        cy=f32(K[1, 2]),
+        dist=(0.0, 0.0, 0.0, 0.0) if zero_dist else cam.dist)
+
+
+def with_rect_roi(cam: Camera, grid) -> Camera:
+    """The camera with its ROI set to the inner rectangle of remap-grid
+    sources that land inside the raw image (cv::stereoRectify validPixROI,
+    the reference's ROI masks, camera_calibration.cpp:72-75). Host numpy
+    over the (H, W, 2) grid, once at setup."""
+    g = np.asarray(grid.cpu() if isinstance(grid, torch.Tensor) else grid)
+    Hs = g.shape[0]
+    v = ((g[..., 0] >= 0) & (g[..., 0] <= cam.width - 1)
+         & (g[..., 1] >= 0) & (g[..., 1] <= cam.height - 1))
+    rows = np.where(v.mean(axis=1) > 0.5)[0]
+    if len(rows) == 0:
+        return cam
+    y0, y1 = int(rows[0]), int(rows[-1]) + 1
+    sub = v[y0:y1]
+    first = np.argmax(sub, axis=1)
+    last = sub.shape[1] - 1 - np.argmax(sub[:, ::-1], axis=1)
+    x0, x1 = int(first.max()), int(last.min()) + 1
+    fully = v[:, x0:x1].all(axis=1) if x1 > x0 else np.zeros(Hs, bool)
+    ys = np.where(fully)[0]
+    if len(ys):
+        y0, y1 = int(ys[0]), int(ys[-1]) + 1
+    return dataclasses.replace(cam, roi_x0=float(x0), roi_y0=float(y0),
+                               roi_x1=float(x1), roi_y1=float(y1))

@@ -14,8 +14,9 @@ the CPU unasked.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -44,3 +45,30 @@ def select(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """x[k] for a 0-dim integer tensor k, read on k's device: indexing with
     the tensor itself reads k back to the host first, a sync on the card."""
     return x.index_select(0, k.reshape(1))[0]
+
+
+class Fetch:
+    """Device -> host copies started now and read later (the pipelined
+    mode's deferred reads). On the card each tensor is copied with
+    ``copy_(non_blocking=True)`` into a pinned host buffer and one CUDA
+    event is recorded behind the copies; ``result`` waits on that event
+    only. On the CPU the tensors are cloned: ``.to("cpu")`` of a CPU tensor
+    is the tensor itself, which later in-place steps would change."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        self.bufs = []
+        for a in tensors:
+            if a.device.type == "cuda":
+                buf = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                self.bufs.append(buf.copy_(a, non_blocking=True))
+                self.event = self.event or torch.cuda.Event()
+            else:
+                self.bufs.append(a.detach().clone())
+        if self.event is not None:
+            self.event.record()
+
+    def result(self) -> Tuple[np.ndarray, ...]:
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(b.numpy() for b in self.bufs)

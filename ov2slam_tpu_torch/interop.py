@@ -66,9 +66,9 @@ def frame_kps(kps, device=None) -> FrameKps:
 
 
 def fe_state(state, device=None, seed: int = 0) -> FEState:
-    """JAX ``FEState`` -> port ``FEState``. Pyramids are converted to float32
-    (the JAX package may store float16); the PRNG key becomes a seeded
-    generator."""
+    """JAX ``FEState`` -> port ``FEState``. Pyramids (the keyframe
+    templates too, where set) are converted to float32 (the JAX package may
+    store float16); the PRNG key becomes a seeded generator."""
     lvl = lambda seq: tuple(tensor(a, device, torch.float32) for a in seq)  # noqa: E731
     dev = torch.device("cpu") if device is None else torch.device(device)
     gen = torch.Generator(device=dev)
@@ -79,7 +79,9 @@ def fe_state(state, device=None, seed: int = 0) -> FEState:
         R_cw=tensor(state.R_cw, device), t_cw=tensor(state.t_cw, device),
         R_vel=tensor(state.R_vel, device), t_vel=tensor(state.t_vel, device),
         has_vel=tensor(state.has_vel, device, torch.bool),
-        R_kf=tensor(state.R_kf, device), gen=gen)
+        R_kf=tensor(state.R_kf, device), gen=gen,
+        **{k: lvl(getattr(state, k)) for k in ("kf_pyr", "kf_gx", "kf_gy")
+           if getattr(state, k, None) is not None})
 
 
 def ba_problem(p, device=None) -> BAProblem:

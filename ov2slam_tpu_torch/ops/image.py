@@ -1,6 +1,6 @@
-"""Whole-image ops: pyramids, blur, gradients, CLAHE (port of the parts of
-``ov2slam_tpu/ops/image.py`` the port uses; the remaps are not ported yet,
-ROADMAP queue A4).
+"""Whole-image ops: pyramids, blur, gradients, bilinear and bicubic
+sampling, the rectification remaps, CLAHE (port of the parts of
+``ov2slam_tpu/ops/image.py`` the port uses).
 
 Images are float32 (H, W) in [0, 255]. The separable filters keep the JAX
 package's shifted-add formulation and its reflect-101 border (OpenCV's
@@ -81,6 +81,74 @@ def sobel_gradients(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     d = np.array([-1.0, 0.0, 1.0], np.float32)
     s = np.array([1.0, 2.0, 1.0], np.float32)
     return _sep_conv2d(img, d, s), _sep_conv2d(img, s, d)
+
+
+def sample_bilinear(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample img (H, W) at float coords xy (..., 2) -> (...,). Coordinates
+    are clamped to the image (callers mask separately)."""
+    H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.000001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.000001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = x - x0.to(x.dtype)
+    fy = y - y0.to(y.dtype)
+    return (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x1] * fx * (1 - fy)
+            + img[y1, x0] * (1 - fx) * fy + img[y1, x1] * fx * fy)
+
+
+def patch_grid(win: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(win*win, 2) (x, y) offsets of a win x win window centred on 0,
+    x fastest."""
+    r = (win - 1) / 2.0
+    xs = torch.arange(win, dtype=dtype, device=device) - r
+    yy, xx = torch.meshgrid(xs, xs, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
+
+
+def remap_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Full-image remap out[i, j] = img(grid[i, j]) (cv::remap, bilinear);
+    grid (H', W', 2) float source pixels."""
+    return sample_bilinear(img, grid)
+
+
+def _cubic_weights(f: torch.Tensor, a: float = -0.75):
+    """Keys bicubic weights (cv::INTER_CUBIC, a = -0.75) of the taps at
+    offsets -1, 0, 1, 2 from floor(coord); f in [0, 1)."""
+    d0, d1, d2, d3 = 1.0 + f, f, 1.0 - f, 2.0 - f
+    w0 = a * d0 * d0 * d0 - 5.0 * a * d0 * d0 + 8.0 * a * d0 - 4.0 * a
+    w1 = (a + 2.0) * d1 * d1 * d1 - (a + 3.0) * d1 * d1 + 1.0
+    w2 = (a + 2.0) * d2 * d2 * d2 - (a + 3.0) * d2 * d2 + 1.0
+    w3 = a * d3 * d3 * d3 - 5.0 * a * d3 * d3 + 8.0 * a * d3 - 4.0 * a
+    return w0, w1, w2, w3
+
+
+def sample_bicubic(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Bicubic sampling (a = -0.75) at float coords: separable 4x4 taps,
+    clamped borders, summed in the JAX package's order."""
+    H, W = img.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.000001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.000001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    wx = _cubic_weights(x - x0.to(x.dtype))
+    wy = _cubic_weights(y - y0.to(y.dtype))
+    out = torch.zeros(x.shape, dtype=img.dtype, device=img.device)
+    for i in range(4):
+        yi = torch.clamp(y0 + (i - 1), 0, H - 1)
+        row = torch.zeros(x.shape, dtype=img.dtype, device=img.device)
+        for j in range(4):
+            row = row + wx[j] * img[yi, torch.clamp(x0 + (j - 1), 0, W - 1)]
+        out = out + wy[i] * row
+    return out
+
+
+def remap_bicubic(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """cv::remap(..., INTER_CUBIC): the rectification and undistortion
+    remap of every incoming frame."""
+    return sample_bicubic(img, grid)
 
 
 _CLAHE_TILES = 8      # tiles per side, as cv::createCLAHE's default grid

@@ -4,9 +4,11 @@
 Replaces the reference's Estimator thread (estimator.cpp) and the
 problem-construction half of Optimizer::localBA (optimizer.cpp:34-897):
 select the covisibility window around the newest keyframe, assemble a
-padded ``BAProblem`` from the host map store, run the Schur-LM solver on the
-device, write results back, sweep outlier observations, and cull redundant
-keyframes. The local BA always has one fixed shape (F, L, O) = (24, 2048,
+padded ``BAProblem`` from the host map store, run the Schur-LM (or dogleg)
+solver on the device, write results back, sweep outlier observations, and
+cull redundant keyframes. In the pipelined mode the solve is dispatched at
+one keyframe (``begin_local_ba``) and written back frames later
+(``finalize_local_ba``), its results fetched in between. The local BA always has one fixed shape (F, L, O) = (24, 2048,
 12288); windows beyond it are truncated by covisibility score and counted
 in ``n_truncations``. Span, full and windowed BA are not ported yet.
 """
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ov2slam_tpu_torch.core.lie import SE3
-from ov2slam_tpu_torch.device import resolve_device
+from ov2slam_tpu_torch.device import Fetch, resolve_device
 from ov2slam_tpu_torch.opt import ba as ba_mod
 from ov2slam_tpu_torch.opt.residuals import Calib
 from ov2slam_tpu_torch.slam.map import MapStore
@@ -211,11 +213,37 @@ class Estimator:
 
     # ------------------------------------------------------------------
     def _solve(self, prob, max_iters: int) -> ba_mod.BAResult:
+        """Schur-LM, or the Powell dogleg when use_dogleg (or
+        use_subspace_dogleg) is set (optimizer.cpp:448-456)."""
         p = self.params
+        method = ("dogleg" if (p.use_dogleg or p.use_subspace_dogleg)
+                  else "lm")
         return ba_mod.solve_ba(
             prob, invdepth=p.buse_inv_depth, max_iters=max_iters, robust=True,
             th2_mono=p.robust_mono_th, th2_stereo=p.robust_stereo_th,
-            l2_refine=p.apply_l2_after_robust)
+            l2_refine=p.apply_l2_after_robust, method=method)
+
+    def begin_local_ba(self, m: MapStore, new_kfid: int, max_iters: int = 5):
+        """Build and solve the local BA of `new_kfid` and start the fetch of
+        its results; ``finalize_local_ba`` writes them back later (the
+        reference's Estimator thread runs BA beside tracking,
+        estimator.cpp:32-98). Returns None when there is no problem."""
+        built = self.build_problem(m, new_kfid)
+        if built is None:
+            return None
+        prob, kf_list, lm_ids, meta = built
+        result = self._solve(prob, max_iters)
+        fetch = Fetch(result.R, result.t, result.Xw, result.lam,
+                      result.obs_inlier, result.cost0, result.cost)
+        return (kf_list, lm_ids, meta, fetch)
+
+    def finalize_local_ba(self, m: MapStore, pending) -> BAOutcome:
+        out = BAOutcome()
+        if pending is None:
+            return out
+        kf_list, lm_ids, meta, fetch = pending
+        return self._writeback(m, kf_list, lm_ids, meta, None, out,
+                               prefetched=fetch.result())
 
     def local_ba(self, m: MapStore, new_kfid: int, max_iters: int = 5
                  ) -> BAOutcome:
@@ -227,10 +255,15 @@ class Estimator:
         result = self._solve(prob, max_iters)
         return self._writeback(m, kf_list, lm_ids, meta, result, out)
 
-    def _writeback(self, m, kf_list, lm_ids, meta, result, out) -> BAOutcome:
-        R_np, t_np, Xw_np, lam_np, inl = (
-            a.cpu().numpy() for a in (result.R, result.t, result.Xw,
-                                      result.lam, result.obs_inlier))
+    def _writeback(self, m, kf_list, lm_ids, meta, result, out,
+                   prefetched=None) -> BAOutcome:
+        """Poses, landmarks and the outlier sweep from `result`, or from its
+        arrays already fetched (`prefetched`, in ``Fetch`` order)."""
+        if prefetched is None:
+            prefetched = tuple(a.cpu().numpy() for a in (
+                result.R, result.t, result.Xw, result.lam, result.obs_inlier,
+                result.cost0, result.cost))
+        R_np, t_np, Xw_np, lam_np, inl, cost0_np, cost_np = prefetched
         for i, kfid in enumerate(kf_list):
             if meta["pose_opt"][i] and kfid in m.keyframes:
                 T = np.eye(4, dtype=np.float32)
@@ -265,8 +298,8 @@ class Estimator:
         out.n_lms = nL
         out.n_obs = meta["n_obs"]
         out.n_outliers = n_out
-        out.cost0 = float(result.cost0)
-        out.cost = float(result.cost)
+        out.cost0 = float(cost0_np)
+        out.cost = float(cost_np)
         return out
 
     # ------------------------------------------------------------------

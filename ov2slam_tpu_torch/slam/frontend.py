@@ -6,9 +6,10 @@ preprocessing, the constant-velocity motion model, prior-seeded
 forward-backward KLT over all keypoints, multi-start robust PnP, the
 rotation-compensated parallax and the keyframe-need heuristics, with the
 optional CLAHE (``use_clahe``), the parallax-gated essential-matrix RANSAC
-filter (``do_epipolar``) and the P3P-RANSAC PnP start (``dop3p``). Templates
-are frame to frame; KF-to-frame tracking is refused by ``SlamSystem``
-(ROADMAP queue A4).
+filter (``do_epipolar``) and the P3P-RANSAC PnP start (``dop3p``). KLT
+templates are the previous frame's, or with ``track_from_kf``
+(``btrack_keyframetoframe``) the last keyframe's pyramid at the keypoints'
+keyframe positions.
 
 State (``FEState``) is a NamedTuple of tensors on the system's device. The
 per-frame step returns a new state and a (12,) stats vector, the only thing
@@ -97,12 +98,19 @@ def track_frame(
     draw: Optional[Draw] = None,
     prev_gpyr=None,
     cur_gpyr=None,
+    track_from_kf: bool = False,
 ) -> TrackResult:
     """One tracking step (the device side of visualTracking/trackMono,
     visual_front_end.cpp:40-128): fused KLT, the epipolar filter, then PnP
     from two starts (three with dop3p). `draw` gives the RANSACs' sample
     indices (the epipolar filter's of size 5, the P3P start's of size 3);
-    it is needed when do_epipolar or dop3p is set."""
+    it is needed when do_epipolar or dop3p is set.
+
+    With track_from_kf (btrack_keyframetoframe,
+    visual_front_end.cpp:278-442) prev_pyr / prev_gpyr are the last
+    keyframe's pyramids and the KLT templates sit at the keypoints'
+    keyframe positions (kps.kf_px); the epipolar filter then relates the
+    keyframe's bearings to the current ones."""
     if R_kf is None:
         R_kf = R_prev
     T_prior = SE3(R_prior, t_prior)
@@ -115,8 +123,10 @@ def track_frame(
     proj = cam_mod.project_cam_to_image_dist(cam, lie.se3_apply(T_prior, Xw))
     prior_ok = kp_is3d & cam_mod.in_image(cam, proj, border=nklt_win)
     prior = torch.where(prior_ok[:, None], proj, kps.px)
+    tmpl_px = kps.kf_px if track_from_kf else kps.px
+    prev_bv = kps.kf_bv if track_from_kf else kps.bv
     st = klt_mod.fb_klt_tracking(
-        prev_pyr, cur_pyr, kps.px, prior, kps.valid, nlevels=nklt_pyr_lvl,
+        prev_pyr, cur_pyr, tmpl_px, prior, kps.valid, nlevels=nklt_pyr_lvl,
         win=nklt_win, max_iters=nmax_iter, eps=fmax_px_precision,
         max_fb_dist=fmax_fbklt_dist, max_err=klt_err,
         prev_grad_pyr=prev_gpyr, next_grad_pyr=cur_gpyr)
@@ -129,14 +139,15 @@ def track_frame(
     # matrix is degenerate and its inlier split destructive (the reference
     # skips below 2 * fransac_err px, visual_front_end.cpp:530-537)
     if do_epipolar:
-        bv_rot_p = torch.einsum("ij,nj->ni", R_prior @ R_prev.T, kps.bv)
+        R_ref = R_kf if track_from_kf else R_prev
+        bv_rot_p = torch.einsum("ij,nj->ni", R_prior @ R_ref.T, prev_bv)
         rot_px_p = cam_mod.project_cam_to_image(cam, bv_rot_p)
         par_p = torch.linalg.norm(kps2.unpx - rot_px_p, dim=-1)
         avg_par = torch.sum(torch.where(kps2.valid, par_p, torch.zeros_like(par_p))
                             ) / torch.clamp(n_tracked, min=1)
         if bool((n_tracked >= 16) & (avg_par > 2.0 * fransac_err)):
             eres = mvg.essential_ransac(
-                kps.bv, kps2.bv, kps2.valid, err_th=fransac_err / focal,
+                prev_bv, kps2.bv, kps2.valid, err_th=fransac_err / focal,
                 idx=draw(kps2.valid, n_ransac_hyps, 5))
             keep_ratio = torch.sum(eres.inliers) / torch.clamp(n_tracked, min=1)
             apply = eres.success & (keep_ratio > 0.5)
@@ -242,6 +253,11 @@ class FEState(NamedTuple):
     R_kf: torch.Tensor                  # rotation of the last keyframe
     # seeded generator of the epipolar filter's and the P3P start's samples
     gen: torch.Generator
+    # the last keyframe's pyramids: the KLT templates of KF-to-frame
+    # tracking (btrack_keyframetoframe, visual_front_end.cpp:278-442)
+    kf_pyr: Optional[Tuple[torch.Tensor, ...]] = None
+    kf_gx: Optional[Tuple[torch.Tensor, ...]] = None
+    kf_gy: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def _grad_pyrs(pyr):
@@ -260,10 +276,13 @@ def init_fe_state(img: torch.Tensor, kp_cap: int, levels: int,
     gen.manual_seed(int(seed))
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    # the first frame is the first keyframe template (no step changes a
+    # pyramid in place, so the state may share them)
     return FEState(
         pyr=pyr, gx=gx, gy=gy, kps=FrameKps.empty(kp_cap, device=dev),
         R_cw=eye, t_cw=zero, R_vel=eye.clone(), t_vel=zero.clone(),
-        has_vel=torch.tensor(False, device=dev), R_kf=eye.clone(), gen=gen)
+        has_vel=torch.tensor(False, device=dev), R_kf=eye.clone(), gen=gen,
+        kf_pyr=pyr, kf_gx=gx, kf_gy=gy)
 
 
 def frame_step(state: FEState, img: torch.Tensor, lm_pos: torch.Tensor,
@@ -273,8 +292,10 @@ def frame_step(state: FEState, img: torch.Tensor, lm_pos: torch.Tensor,
                fmax_px_precision: float = 0.01, fmax_fbklt_dist: float = 0.5,
                klt_err: float = 30.0, do_epipolar: bool = False,
                fransac_err: float = 3.0, robust_th2: float = 5.9915,
-               n_ransac_hyps: int = 256, dop3p: bool = False):
-    """One frame: preprocess + motion model + track + pose + stats.
+               n_ransac_hyps: int = 256, dop3p: bool = False,
+               track_from_kf: bool = False):
+    """One frame: preprocess + motion model + track + pose + stats. With
+    track_from_kf the KLT templates are the state's keyframe pyramids.
 
     Returns (new_state, stats) with stats a (12,) f32 tensor
     [pose_ok, n_tracked, n_3d, n_inliers, parallax_med, tx, ty, tz,
@@ -288,16 +309,19 @@ def frame_step(state: FEState, img: torch.Tensor, lm_pos: torch.Tensor,
     R_prior = torch.where(state.has_vel, T_pred.R, T_prev.R)
     t_prior = torch.where(state.has_vel, T_pred.t, T_prev.t)
 
+    use_kf = track_from_kf and state.kf_pyr is not None
+    tmpl_pyr, tmpl_gx, tmpl_gy = ((state.kf_pyr, state.kf_gx, state.kf_gy)
+                                  if use_kf else (state.pyr, state.gx, state.gy))
     res = track_frame(
-        state.pyr, cur_pyr, state.kps, lm_pos, lm_is3d, cam,
+        tmpl_pyr, cur_pyr, state.kps, lm_pos, lm_is3d, cam,
         R_prior, t_prior, state.R_cw, state.t_cw, R_kf=state.R_kf,
         nklt_pyr_lvl=levels, nklt_win=nklt_win, nmax_iter=nmax_iter,
         fmax_px_precision=fmax_px_precision, fmax_fbklt_dist=fmax_fbklt_dist,
         klt_err=klt_err, do_epipolar=do_epipolar, fransac_err=fransac_err,
         robust_th2=robust_th2, n_ransac_hyps=n_ransac_hyps, dop3p=dop3p,
         draw=lambda v, k, s: mvg.draw_samples(v, k, s, state.gen),
-        prev_gpyr=tuple(zip(state.gx, state.gy)),
-        cur_gpyr=tuple(zip(cur_gx, cur_gy)))
+        prev_gpyr=tuple(zip(tmpl_gx, tmpl_gy)),
+        cur_gpyr=tuple(zip(cur_gx, cur_gy)), track_from_kf=use_kf)
 
     # velocity update: vel = T_new o T_prev^-1
     T_new = SE3(res.T_cw_R, res.T_cw_t)
@@ -305,7 +329,8 @@ def frame_step(state: FEState, img: torch.Tensor, lm_pos: torch.Tensor,
     new_state = FEState(
         pyr=cur_pyr, gx=cur_gx, gy=cur_gy, kps=res.kps,
         R_cw=res.T_cw_R, t_cw=res.T_cw_t, R_vel=vel.R, t_vel=vel.t,
-        has_vel=torch.ones_like(state.has_vel), R_kf=state.R_kf, gen=state.gen)
+        has_vel=torch.ones_like(state.has_vel), R_kf=state.R_kf, gen=state.gen,
+        kf_pyr=state.kf_pyr, kf_gx=state.kf_gx, kf_gy=state.kf_gy)
     f32 = torch.float32
     stats = torch.cat([
         torch.stack([res.pose_ok.to(f32), res.n_tracked.to(f32),

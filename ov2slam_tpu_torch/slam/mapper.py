@@ -3,7 +3,8 @@ triangulation (port of the slice path of ``ov2slam_tpu/slam/mapper.py``).
 
 Replaces the reference's Mapper + the detection/stereo side of MapManager
 (mapper.cpp, map_manager.cpp:286-611): on each keyframe, detect new
-keypoints in free grid cells (single-scale min-eig detector), BRIEF-describe
+keypoints in free grid cells (single-scale min-eig, FAST-9, or min-eig with
+cornerSubPix for GFTT), BRIEF-describe
 everything, in stereo KLT-match left->right with depth / SAD-row priors and
 an epipolar gate and triangulate the matches, and temporally triangulate
 leftover 2D keypoints against their first observing keyframe (the only
@@ -28,6 +29,39 @@ from ov2slam_tpu_torch.ops import mvg
 from ov2slam_tpu_torch.slam import frame as frame_mod
 from ov2slam_tpu_torch.slam.frame import FrameKps
 from ov2slam_tpu_torch.slam.frontend import nanmedian
+
+
+def detect_keypoints(img: torch.Tensor, kps: FrameKps, cellsize: int,
+                     quality_th, detector: str = "singlescale",
+                     fast_th: int = 10, cam: Camera = None
+                     ) -> det_mod.GridDetection:
+    """Grid detection masked by the current keypoints
+    (MapManager::extractKeypoints, map_manager.cpp:286-341). `detector`:
+    "singlescale" takes the Shi-Tomasi min-eig response (detectSingleScale,
+    feature_extractor.cpp:288-440), "fast" the FAST-9 score with quality_th
+    the FAST threshold (detectGridFAST, :443-570), "gftt" the min-eig peaks
+    refined by cornerSubPix (detectGFTT, :104-221; the JAX package refines
+    them in kf_step). With `cam`, responses outside its valid ROI are zeroed
+    (after rectification the border bands attract corners;
+    camera_calibration.cpp:72-75)."""
+    img = img.to(torch.float32)
+    if detector == "fast":
+        resp = det_mod.fast_score(img, float(fast_th))
+    elif detector in ("singlescale", "gftt"):
+        resp = det_mod.min_eig_response(img)
+    else:
+        raise ValueError(f"unknown detector {detector!r}")
+    if cam is not None:
+        ys = torch.arange(img.shape[0], dtype=img.dtype, device=img.device)[:, None]
+        xs = torch.arange(img.shape[1], dtype=img.dtype, device=img.device)[None, :]
+        roi = ((xs >= cam.roi_x0) & (xs < cam.roi_x1)
+               & (ys >= cam.roi_y0) & (ys < cam.roi_y1))
+        resp = torch.where(roi, resp, torch.zeros_like(resp))
+    det = det_mod.grid_select(resp, kps.px, kps.valid, cellsize, quality_th)
+    if detector == "gftt":
+        det = det._replace(points=det_mod.corner_subpix(img, det.points,
+                                                        det.valid))
+    return det
 
 
 class StereoMatchResult(NamedTuple):
@@ -211,25 +245,22 @@ def kf_step(left_pyr, right_pyr, kps: FrameKps, lm_pos, lm_is3d,
             cam_l: Camera, cam_r: Camera, R_cw, t_cw, R_rl, t_rl,
             quality_th: float, cand_lmids: torch.Tensor, depth_prior,
             anc_R, anc_t, anc_bv, anc_lmid, anc_ok, cellsize: int,
+            detector: str = "singlescale", fast_th: int = 10,
             nlevels: int = 3, win: int = 9, max_iters: int = 30,
             fb_dist: float = 0.5, klt_err: float = 30.0,
             epi_th_px: float = 2.0, use_sad_prior: bool = False,
             stereo: bool = True) -> KFStepResult:
     """The device side of keyframe creation: grid detection -> keypoint
     insertion -> BRIEF -> (stereo matching -> stereo triangulation) ->
-    temporal triangulation. Anchor data (anc_*) is host-assembled from the
+    temporal triangulation. `detector` is "singlescale", "fast" (FAST-9
+    score, quality_th the FAST threshold) or "gftt" (min-eig peaks refined
+    by cornerSubPix). Anchor data (anc_*) is host-assembled from the
     previous keyframe record and applies only while a slot still holds
     anc_lmid. With stereo=False (mono) there is no right image: only
     temporal triangulation runs, with no minimum baseline."""
     img = left_pyr[0].to(torch.float32)
-    resp = det_mod.min_eig_response(img)
-    # confine detection to the camera's valid ROI (no-op for a full ROI)
-    ys = torch.arange(img.shape[0], dtype=img.dtype, device=img.device)[:, None]
-    xs = torch.arange(img.shape[1], dtype=img.dtype, device=img.device)[None, :]
-    roi = ((xs >= cam_l.roi_x0) & (xs < cam_l.roi_x1)
-           & (ys >= cam_l.roi_y0) & (ys < cam_l.roi_y1))
-    resp = torch.where(roi, resp, torch.zeros_like(resp))
-    det = det_mod.grid_select(resp, kps.px, kps.valid, cellsize, quality_th)
+    det = detect_keypoints(img, kps, cellsize, quality_th, detector, fast_th,
+                           cam=cam_l)
     kps2 = frame_mod.insert_keypoints(kps, cam_l, det.points, det.valid,
                                       cand_lmids)
 

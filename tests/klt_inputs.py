@@ -2,9 +2,9 @@
 made with the port alone (no jax, no OpenCV), for the GPU checks of the KLT
 kernel (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
-Two rendered 752x480 frames of ``synthetic_np``, 3-level float32 pyramids,
-and the corners a 45 px grid detector finds on the first frame: the best
-corner of each of the 160 cells, then the second best, cut to N (the slice's
+Rendered 752x480 frames of ``synthetic_np``, 3-level float32 pyramids, and
+the corners a 45 px grid detector finds on the first frame: the best corner
+of each of the 160 cells, then the second best, cut to N (the slice's
 ``kp_cap`` is 192).
 """
 
@@ -23,11 +23,14 @@ def klt_case(frames, N: int, pair: str, jitter: float, device, seed: int = 0):
     """frames = (left, right) image lists of synthetic_np.render_sequence.
 
     pair "temporal" tracks left frame 0 -> 1 with gradient pyramids given
-    (the front end's call); "stereo" tracks left -> right of frame 0 without
+    (the front end's call); "keyframe" tracks left frame 0 -> the last left
+    frame the same way (KF-to-frame tracking: the template is a keyframe
+    some frames back); "stereo" tracks left -> right of frame 0 without
     them (the mapper's). Priors are the corners plus N(0, jitter) px noise.
     Returns the arguments and keywords of fb_klt_tracking."""
     fl, fr = frames
-    img0, img1 = (fl[0], fl[1]) if pair == "temporal" else (fl[0], fr[0])
+    img0, img1 = {"temporal": (fl[0], fl[1]), "keyframe": (fl[0], fl[-1]),
+                  "stereo": (fl[0], fr[0])}[pair]
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa: E731
     p0 = im.build_pyramid(to(img0), NLEVELS)
     p1 = im.build_pyramid(to(img1), NLEVELS)
@@ -42,7 +45,7 @@ def klt_case(frames, N: int, pair: str, jitter: float, device, seed: int = 0):
     prior = pts + torch.from_numpy(
         rng.normal(0.0, jitter, tuple(pts.shape)).astype(np.float32))
     kw = dict(nlevels=NLEVELS, win=9)
-    if pair == "temporal":
+    if pair != "stereo":
         kw["prev_grad_pyr"] = [tuple(g.to(device) for g in im.scharr_gradients(a))
                                for a in p0]
         kw["next_grad_pyr"] = [tuple(g.to(device) for g in im.scharr_gradients(a))

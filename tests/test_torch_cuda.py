@@ -108,14 +108,14 @@ def test_kernel_frozen_and_empty_inputs(cuda):
 
 @pytest.fixture(scope="module")
 def frames(cuda):
-    fl, fr, _ = synp.render_sequence(n_frames=2, step=0.05)
+    fl, fr, _ = synp.render_sequence(n_frames=4, step=0.05)
     return fl, fr
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [192, 320])
 @pytest.mark.parametrize("pair,jitter", [("temporal", 0.0), ("temporal", 1.5),
-                                         ("stereo", 0.0)])
+                                         ("keyframe", 1.5), ("stereo", 0.0)])
 def test_klt_track_matches_plain_on_card(cuda, frames, N, pair, jitter):
     args, kw = klt_inputs.klt_case(frames, N, pair, jitter, cuda)
     before = klt.LAUNCHES
@@ -294,3 +294,63 @@ def test_clahe_on_card_matches_cpu(cuda, frames):
         a = np.ascontiguousarray(img[:shape[0], :shape[1]])
         oc, og = _cpu_and_card(lambda x: im.clahe(x, clip_limit=3.0), cuda, a)
         assert np.abs(og.cpu().numpy() - oc.numpy()).max() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_fast_score_and_remap_on_card_match_cpu(cuda, frames):
+    """FAST-9 scores (exact float32 differences and minima: 1e-4) and the
+    bicubic rectification remap (1e-3 gray levels) on the card against the
+    CPU."""
+    from ov2slam_tpu_torch.core import camera as cam_mod
+    from ov2slam_tpu_torch.ops import detect
+    img = np.ascontiguousarray(frames[0][0], np.float32)
+    sc, sg = _cpu_and_card(lambda x: detect.fast_score(x, 10.0), cuda, img)
+    assert (sc > 0).sum() > 100
+    np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), atol=1e-4, rtol=0)
+    cam = cam_mod.Camera.make("pinhole", 458.0, 457.0, 367.0, 248.0,
+                              [-0.28, 0.07, 2e-4, 2e-5], 752, 480)
+    R1, _, K_new, _ = cam_mod.stereo_rectify(
+        cam, cam, _rot([0.01, -0.02, 0.005]), np.array([-0.11, 0.001, 0.0]))
+    grid = cam_mod.compute_undist_rect_map(cam, R_rect=R1, K_new=K_new)
+    oc, og = _cpu_and_card(im.remap_bicubic, cuda, img, grid.numpy())
+    np.testing.assert_allclose(og.cpu().numpy(), oc.numpy(), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_pipelined_stereo_on_card_matches_cpu(cuda):
+    """force_realtime on the card against the CPU on the same 30 frames
+    and the same fixed lags: every frame logged, keyframe counts within
+    one, ATEs within 1 mm, frames within 5 mm (local BA scatter-adds with
+    atomics on the card, so the two runs round differently), and one
+    klt_track launch per tracking call plus one per keyframe's stereo
+    match."""
+    from ov2slam_tpu_torch.config import SlamParams
+    from ov2slam_tpu_torch.io.trajectories import ate_rmse
+    from ov2slam_tpu_torch.slam import mapper
+    from ov2slam_tpu_torch.slam.manager import SlamSystem
+    n = 30
+    fl, fr, gt = synp.render_sequence(n_frames=n, step=0.05)
+    gt_t = np.stack([T[:3, 3] for T in gt])
+    d = synp.slam_params_dict()
+    d["force_realtime"] = 1
+    real_kf_step, kf_steps = mapper.kf_step, []
+    mapper.kf_step = lambda *a, **k: kf_steps.append(1) or real_kf_step(*a, **k)
+    runs = {}
+    try:
+        for dev in ("cpu", cuda):
+            s = SlamSystem(SlamParams.from_dict(d), device=dev)
+            k0, kf0 = klt.LAUNCHES, len(kf_steps)
+            for i in range(n):
+                s.process_stereo(fl[i], fr[i], i * 0.05)
+            s.flush()
+            runs[str(dev)] = (np.stack(s.logger.poses_wc)[:, :3, 3],
+                              len(s.map.keyframes), s.pipeline_counts,
+                              klt.LAUNCHES - k0, len(kf_steps) - kf0)
+    finally:
+        mapper.kf_step = real_kf_step
+    (ec, nc, _, lc, _), (eg, ng, pg, lg, kg) = runs["cpu"], runs[str(cuda)]
+    assert eg.shape == (n, 3) and np.isfinite(eg).all()
+    assert abs(ng - nc) <= 1 and pg["kf_commit_lag"] >= 1 and pg["ba_writeback"] >= 1
+    assert abs(ate_rmse(eg, gt_t) - ate_rmse(ec, gt_t)) <= 1e-3
+    assert np.linalg.norm(eg - ec, axis=1).max() <= 5e-3
+    assert lc == 0 and lg == (n - 1) + kg

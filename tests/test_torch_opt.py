@@ -163,3 +163,29 @@ def test_solve_ba_matches_jax(invdepth, seed):
     np.testing.assert_allclose(float(ot.cost), float(oj.cost), rtol=1e-2,
                                atol=1e-3 * float(oj.cost0))
     assert float(ot.cost) < 0.1 * float(ot.cost0)
+
+
+@pytest.mark.parametrize("invdepth,seed", [(True, 7), (False, 8)])
+def test_solve_ba_dogleg_matches_jax(invdepth, seed):
+    """method="dogleg" (use_dogleg) against the JAX package's Powell dogleg
+    on the problems of tests/test_opt.py::test_ba_dogleg_converges_like_lm:
+    rotations to 1e-5 rad, translations to 1e-4 m (the LM test's bound;
+    1.07e-5 m measured), the same iteration count and inliers."""
+    prob, poses_gt, Xw_gt, n_kf, n_lm = make_ba_problem(
+        np.random.default_rng(seed), invdepth=invdepth)
+    kw = dict(invdepth=invdepth, max_iters=12, method="dogleg")
+    oj = jba.solve_ba(prob, **kw)
+    ot = tba.solve_ba(interop.ba_problem(prob), **kw)
+    dR = n(ot.R).astype(np.float64) @ np.swapaxes(n(oj.R), -1, -2)
+    # rotation angle from the skew part (arccos of the trace cannot resolve
+    # angles below ~3e-4 rad in float32 inputs)
+    ang = np.arcsin(np.clip(0.5 * np.linalg.norm(
+        np.stack([dR[:, 2, 1] - dR[:, 1, 2], dR[:, 0, 2] - dR[:, 2, 0],
+                  dR[:, 1, 0] - dR[:, 0, 1]], -1), axis=-1), 0.0, 1.0))
+    assert ang.max() <= 1e-5, ang.max()
+    np.testing.assert_allclose(n(ot.t), n(oj.t), atol=1e-4)
+    np.testing.assert_array_equal(n(ot.obs_inlier), n(oj.obs_inlier))
+    assert ot.n_iters == int(oj.n_iters)
+    assert float(ot.cost) < 0.1 * float(ot.cost0)
+    np.testing.assert_allclose(float(ot.cost), float(oj.cost), rtol=1e-3,
+                               atol=1e-4 * float(oj.cost0))

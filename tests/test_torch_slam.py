@@ -277,13 +277,15 @@ UNSUPPORTED = {
 
 
 # settings that were outside the stereo slice and are ported since
-PORTED = ("mono", "use_clahe", "doepipolar", "dop3p")
+PORTED = ("mono", "use_clahe", "doepipolar", "dop3p", "btrack_keyframetoframe",
+          "force_realtime", "async_ba", "bdo_stereo_rect", "bdo_undist",
+          "use_fast", "use_shi_tomasi", "use_dogleg")
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_settings_outside_the_slice_raise(name):
     """Every setting outside the ported paths raises naming its ROADMAP
-    item; the four ported since (PORTED) now build a system."""
+    item; those ported since (PORTED) now build a system."""
     d = slice_params()
     d.update(UNSUPPORTED[name])
     if name in PORTED:
