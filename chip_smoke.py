@@ -56,7 +56,30 @@ Phases (any failure raises; nothing falls back to the CPU):
 10. rect: ``accurate_stereo_rect`` (``bdo_stereo_rect``, every frame
    remapped bicubic on the card) on the same frames, and the 60-frame
    synthetic slice with ``btrack_keyframetoframe`` (KLT templates from the
-   last keyframe), under the same checks.
+   last keyframe), under the same checks;
+11. loop: ``accurate_stereo``, the shipped loop-closing preset
+   (``force_realtime``, the loop closer on; the loop detector scaled as
+   ``scripts/hard_bench.py`` scales it), over all 1000 frames of
+   ``render_hard_sequence`` (the trajectory revisits its start after ~926):
+   at least one loop closure with >= 30 inliers, one finite pose per frame,
+   live and relaxed full-trajectory (``wlc_opt``) ATEs within 1.5x + 5 mm
+   of the JAX package's on the CPU, host ms of the loop-closing stage per
+   keyframe, of each closure and of its span BA, and of the final passes;
+   then the out-and-back world of ``tests/test_loopclosing.py``
+   (``tests/loop_synthetic_np.py``, 100 frames): synchronous stereo with
+   ``do_full_ba`` (a loop closes, the local-map expansion grows the match
+   set, the three final-pass files are written with a finite row per frame,
+   ATE < 0.08; the closure's device operations under the profiler),
+   pipelined stereo (a loop closes, one pose per frame, no step > 0.25 m),
+   mono (a loop closes, Sim(3) ``wlc_opt`` ATE < 0.08 and <= 1.2x live +
+   1 mm) and the stereo kidnap (relocalized within 0.1 m, a new tracking
+   chain). Every path launches ``klt_track`` exactly once per tracking call
+   besides one per keyframe stereo match, and ``lk_iterate`` never. The four
+   out-and-back runs are processes of their own (``--loop-run NAME``),
+   started together and run beside phases 9-10 (their host times are not
+   clean timings); ``accurate_stereo`` runs alone after them.
+
+The hard sequence is rendered once, at the start, by worker processes.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the ``kernels`` line sums them over every path.
@@ -139,6 +162,9 @@ MONO_STEP = 0.05
 # (`JAX_PLATFORMS=cpu python3 scripts/torch_preset_tiers.py --backend jax`);
 # the card must stay within ATE_SLACK * ref + ATE_ABS
 TIER_FRAMES = 120
+# accurate_stereo (loop closer on) over all 1000 frames: live and wlc_opt
+# ATE of the JAX package on the CPU (same script, --backend jax)
+REF_LC_ATE, REF_LC_WLC_OPT = 0.031816659029515935, 0.033392770636519055
 PRESET_TIERS = ("fast_stereo", "accurate_stereo_nolc", "accurate_mono",
                 "average_mono", "fast_mono")
 RECT_TIERS = ("accurate_stereo_rect", "kf2f")
@@ -148,8 +174,14 @@ REF_ATE = {"fast_stereo": 0.011895194593247387,
            "average_mono": 0.024823707626498864,
            "fast_mono": 0.022862843679698763,
            "accurate_stereo_rect": 0.013126949970873455,
-           "kf2f": 0.0005095717850380572}
+           "kf2f": 0.0005095717850380572,
+           "accurate_stereo": REF_LC_ATE,
+           "accurate_stereo_wlc_opt": REF_LC_WLC_OPT}
 ATE_SLACK, ATE_ABS = 1.5, 0.005
+# the loop phase: the out-and-back runs of scripts/torch_preset_tiers.py and
+# their gates (tests/test_loopclosing.py's)
+LOOP_RUNS = ("oab_stereo", "oab_stereo_rt", "oab_mono", "oab_kidnap")
+OAB_ATE, OAB_MAX_STEP, RELOC_ERR, MIN_INLIERS = 0.08, 0.25, 0.1, 30
 
 
 def log(msg: str):
@@ -923,6 +955,190 @@ def phase_tiers(tag: str, dev, names, hard):
     return total, rows
 
 
+@contextlib.contextmanager
+def timing_loop_closer(rec: collections.defaultdict, profile: bool = False):
+    """Record in `rec` the host ms (the card synchronised before and after)
+    and result of every LoopCloser.process_kf call ("process_kf") and every
+    span BA ("span_ba"); with `profile`, run each verification
+    (``_verify_and_close``) under torch.profiler instead and record its
+    wall ms, device operations and result ("verify")."""
+    from ov2slam_tpu_torch.slam.estimator import Estimator
+    from ov2slam_tpu_torch.slam.loopcloser import LoopCloser
+    real = {(LoopCloser, "process_kf"): "process_kf",
+            (Estimator, "span_ba"): "span_ba"}
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[key].append((1000 * (time.perf_counter() - t0), out))
+            return out
+        return wrapper
+
+    def profiled(fn):
+        def wrapper(*a, **k):
+            box = []
+            wall, _, ops, _ = profile_run(lambda: box.append(fn(*a, **k)))
+            rec["verify"].append((wall, ops, box[0]))
+            return box[0]
+        return wrapper
+
+    saved = {(c, n): getattr(c, n) for c, n in real}
+    saved[(LoopCloser, "_verify_and_close")] = LoopCloser._verify_and_close
+    for (c, n), key in real.items():
+        setattr(c, n, timed(saved[(c, n)], key))
+    if profile:
+        LoopCloser._verify_and_close = profiled(saved[(LoopCloser, "_verify_and_close")])
+    try:
+        yield
+    finally:
+        for (c, n), fn in saved.items():
+            setattr(c, n, fn)
+
+
+def _ms_summary(ms) -> str:
+    if not ms:
+        return "none"
+    a = np.asarray(ms)
+    return (f"{len(a)} calls, median {np.median(a):.1f} ms, mean "
+            f"{a.mean():.1f} ms, max {a.max():.1f} ms")
+
+
+def drive_loop(run, total: dict, profile: bool = False):
+    """run(call) under the launch counters of phase_tiers and the
+    loop-closer timings (timing_loop_closer): (its row, the timings). The
+    kernels' launches are added to `total`."""
+    per_call, stereo_kf = [], []
+    rec = collections.defaultdict(list)
+
+    def call(i, fn):
+        k0, s0 = klt.LAUNCHES, len(stereo_kf)
+        fn()
+        per_call.append(klt.LAUNCHES - k0 - (len(stereo_kf) - s0))
+
+    klt.LAUNCHES = lk.LAUNCHES = 0
+    with counting_stereo_kf_steps(stereo_kf), timing_loop_closer(rec, profile):
+        row = run(call)
+    total["klt_track"] += klt.LAUNCHES
+    total["lk_iterate"] += lk.LAUNCHES
+    log(f"[loop] launches: klt_track {klt.LAUNCHES} ({len(stereo_kf)} in "
+        f"keyframe stereo matches, per tracking call "
+        f"{sorted(set(per_call[1:]))}), lk_iterate {lk.LAUNCHES}")
+    assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
+        f"tracking calls must launch klt_track once: {per_call}")
+    assert lk.LAUNCHES == 0, "the per-chunk LK path ran"
+    return row, rec
+
+
+def phase_lc_tier(dev, total: dict, frames):
+    """11a. accurate_stereo, the shipped loop-closing preset, over the
+    whole hard sequence (`frames`)."""
+    name = "accurate_stereo"
+    slam = tiers.make_system("torch", tiers.tier_dict(name), dev, tiers.LC_DETECTOR)
+    assert slam.loopcloser is not None and slam.params.force_realtime
+    row, rec = drive_loop(lambda call: tiers.run_tier(
+        slam, frames, False, call=call, sync=torch.cuda.synchronize), total)
+    n = row["frames"]
+    poses = np.stack(slam.logger.poses_wc)
+    ref, ref_opt = REF_ATE[name], REF_ATE[name + "_wlc_opt"]
+    closures = [ms for ms, ev in rec["process_kf"] if ev is not None]
+    per_kf = [ms for ms, ev in rec["process_kf"] if ev is None]
+    log(f"[loop] {name}: {n} frames, ATE {row['ate']:.5f} m (JAX CPU "
+        f"{ref:.5f}, bound {ATE_SLACK * ref + ATE_ABS:.5f}), wlc_opt ATE "
+        f"{row['ate_wlc_opt']:.5f} m (JAX CPU {ref_opt:.5f}, bound "
+        f"{ATE_SLACK * ref_opt + ATE_ABS:.5f}), {row['fps']:.2f} fps over "
+        f"frames 1-{n - 1} with the flush, keyframes {row['keyframes']}, "
+        f"landmarks {row['landmarks']}, loops [query, match, inliers, merged,"
+        f" jump m] {row['loops']}, final passes {1000 * row['final_seconds']:.0f} ms")
+    log(f"[loop] {name}: loop-closing stage per keyframe without a closure: "
+        f"{_ms_summary(per_kf)}; with a closure: {_ms_summary(closures)}; "
+        f"span BA: {_ms_summary([ms for ms, _ in rec['span_ba']])}; budget "
+        f"timeouts {slam.estimator.n_ba_timeouts}")
+    assert poses.shape == (n, 4, 4) and np.isfinite(poses).all(), (
+        f"{name}: {len(poses)} poses logged for {n} frames")
+    assert any(e[2] >= MIN_INLIERS for e in row["loops"]), (
+        f"{name}: no loop closure with >= {MIN_INLIERS} inliers: {row['loops']}")
+    assert row["ate"] <= ATE_SLACK * ref + ATE_ABS, row["ate"]
+    assert row["ate_wlc_opt"] <= ATE_SLACK * ref_opt + ATE_ABS, row["ate_wlc_opt"]
+
+
+def loop_run(dev, name: str, frames, total: dict):
+    """11b. One out-and-back run, as scripts/torch_preset_tiers.py runs it,
+    with tests/test_loopclosing.py's gates."""
+    slam = tiers.make_system("torch", tiers.oab_dict(name), dev)
+    row, rec = drive_loop(lambda call: tiers.run_oab(
+        slam, name, frames, call=call, sync=torch.cuda.synchronize),
+        total, profile=name == "oab_stereo")
+    ev = slam.last_loop_event
+    log(f"[loop] {name}: {json.dumps(row)}")
+    if name == "oab_kidnap":
+        assert row["reloc_err"] < RELOC_ERR and row["chain_gen"] >= 1, row
+        return
+    assert ev is not None and ev.n_inliers >= MIN_INLIERS, f"{name}: no loop"
+    assert len(slam.logger.poses_wc) == row["frames"], row
+    if name == "oab_stereo":
+        wall, ops, _ = next(v for v in rec["verify"] if v[2] is not None)
+        log(f"[loop] {name}: the closing verification under the profiler: "
+            f"{wall:.0f} ms wall, {ops} device operations; loop-closing stage "
+            f"per keyframe {_ms_summary([ms for ms, ev in rec['process_kf'] if ev is None])}")
+        assert ev.n_pairs_local >= ev.n_pairs_init > 0, ev
+        for f in ("ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt"):
+            assert row["files"][f] == [row["frames"], 8, True], (f, row["files"])
+        assert row["files"]["ov2slam_fullba_kfs_traj.txt"][2], row["files"]
+        assert row["ate"] < OAB_ATE, row
+    elif name == "oab_stereo_rt":
+        assert row["max_step"] < OAB_MAX_STEP, row
+        assert row["max_inflight"] == slam.params.pipeline_depth, row
+    else:
+        assert row["ate_wlc_opt"] < OAB_ATE, row
+        assert row["ate_wlc_opt"] <= 1.2 * row["ate"] + 1e-3, row
+
+
+def start_loop_runs():
+    """Start the four out-and-back runs, one process each (this script with
+    --loop-run NAME), all at once: they share the card and run beside the
+    preset tiers, so their host times are not clean timings."""
+    return [(name, subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--loop-run", name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in LOOP_RUNS]
+
+
+def finish_loop_runs(procs, total: dict, timeout_s: float = 900):
+    """Wait for the runs, relay their output, add their launches to
+    `total`; raise if one failed. Every process is ended on the way out."""
+    try:
+        for name, proc in procs:
+            out, _ = proc.communicate(timeout=timeout_s)
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                log(line)
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"loop run {name} failed (exit "
+                                     f"{proc.returncode}): {lines[-1:]}")
+            counts = json.loads(lines[-1])["launches"]
+            for k in total:
+                total[k] += counts[k]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def loop_child(name: str) -> int:
+    """--loop-run NAME: one out-and-back run on the card; the last line is
+    its kernels' launches."""
+    device_mod.set_precision_policy()
+    _build.build(["lk_iterate", "klt_track"])
+    total = {"klt_track": 0, "lk_iterate": 0}
+    loop_run(torch.device("cuda", 0), name, tiers.oab_frames(), total)
+    print(json.dumps({"loop_run": name, "launches": total}), flush=True)
+    return 0
+
+
 def remap_cost(slam, img):
     """The per-frame rectification of one image: host ms per synchronised
     `_rectify` call (pinned upload + bicubic remap), device ms of the remap
@@ -1034,11 +1250,27 @@ def main() -> int:
                          "kernel and with the epipolar filter on and off, "
                          "profile it and the mono slice (torch.profiler) and "
                          "write the tables into DIR")
+    ap.add_argument("--loop-run", choices=LOOP_RUNS,
+                    help="run one out-and-back run of phase 11 alone (the "
+                         "smoke starts these itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
               "here", file=sys.stderr)
         return 2
+    if args.loop_run:
+        return loop_child(args.loop_run)
+    t_start = time.perf_counter()
+
+    def phase_done(what: str):
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    # the hard sequence, rendered once by worker processes: the preset
+    # tiers take its first TIER_FRAMES frames, the loop tier all of them
+    hard_all = tiers.hard_frames(tiers.HARD_N)
+    hard = tuple(x[:TIER_FRAMES] for x in hard_all)
+    log(f"[render] {tiers.HARD_N} frames of the hard sequence in "
+        f"{time.perf_counter() - t_start:.1f} s")
     smi = smi_line()
     log(smi)
     device_mod.set_precision_policy()
@@ -1058,20 +1290,32 @@ def main() -> int:
             if "Used" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    phase_done("build")
     lk_worst, lk_times = phase_kernel(dev)
     fl, fr, _ = syn.render_sequence(n_frames=4, step=0.05)
     klt_worst, klt_times = phase_klt(dev, (fl, fr))
+    phase_done("kernels")
     phase_ransac(dev)
     phase_clahe(dev, fl[0])
     launches, frames = phase_slice(dev)
     mono, mono_frames = phase_mono(dev)
-    t0 = time.perf_counter()
-    hard = tiers.hard_frames(TIER_FRAMES)
-    log(f"[presets] rendered {TIER_FRAMES} frames of the hard sequence in "
-        f"{time.perf_counter() - t0:.1f} s")
-    presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
-    rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
-    launches = {k: launches[k] + mono[k] + presets[k] + rect[k]
+    phase_done("slices")
+    loop = {"klt_track": 0, "lk_iterate": 0}
+    procs = start_loop_runs()
+    try:
+        presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
+        rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
+    except BaseException:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    phase_done("preset and rect tiers")
+    finish_loop_runs(procs, loop)
+    phase_done("out-and-back runs")
+    phase_lc_tier(dev, loop, hard_all)
+    phase_done("loop tier")
+    launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
                 for k in launches}
     if args.profile:
         phase_compare(dev, frames)

@@ -54,6 +54,30 @@ def solve_spd(H: torch.Tensor, g: torch.Tensor, eps: float = 1e-12
     return torch.stack(x, dim=-1)
 
 
+def cholesky_spd(H: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Lower Cholesky factor (..., n, n) of SPD H by ``solve_spd``'s
+    unrolled recurrence and diagonal guard, for callers that solve with one
+    matrix many times (``cho_solve_spd``)."""
+    n = H.shape[-1]
+    L = [[torch.zeros_like(H[..., 0, 0])] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            s = H[..., i, j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = (torch.sqrt(torch.clamp(s, min=eps)) if i == j
+                       else s / L[j][j])
+    return torch.stack([torch.stack(row, dim=-1) for row in L], dim=-2)
+
+
+def cho_solve_spd(L: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = g for a lower Cholesky factor L (batched): two
+    triangular solves, none of which checks for errors, so nothing waits
+    for the card."""
+    y = torch.linalg.solve_triangular(L, g[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+
+
 def inv3(A: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Closed-form inverse of (..., 3, 3) via the adjugate."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

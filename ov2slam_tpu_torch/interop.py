@@ -1,8 +1,8 @@
 """Carry the JAX package's state across to the port.
 
 Each function takes a JAX-package container (``Camera``, ``FrameKps``,
-``FEState``, ``BAProblem``, ``SE3``, or the landmark arenas) whose fields are
-array-likes — JAX arrays or numpy — reads every field through
+``FEState``, ``BAProblem``, ``PoseGraphProblem``, ``SE3``, ``MapStore``, or
+the landmark arenas) whose fields are array-likes — JAX arrays or numpy — reads every field through
 ``numpy.asarray``, and returns the port's counterpart as tensors on the
 given device (``device=None`` is torch's default, the CPU: this module
 feeds the CPU parity tests and, unlike the system's entry points, keeps
@@ -13,15 +13,19 @@ tests start both packages from identical inputs.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from ov2slam_tpu_torch.core.camera import Camera
 from ov2slam_tpu_torch.core.lie import SE3
 from ov2slam_tpu_torch.opt.ba import BAProblem
+from ov2slam_tpu_torch.opt.posegraph import PoseGraphProblem
 from ov2slam_tpu_torch.opt.residuals import Calib
 from ov2slam_tpu_torch.slam.frame import FrameKps
 from ov2slam_tpu_torch.slam.frontend import FEState
+from ov2slam_tpu_torch.slam.map import KeyframeRecord, MapStore
 
 
 def tensor(a, device=None, dtype=None) -> torch.Tensor:
@@ -99,3 +103,28 @@ def ba_problem(p, device=None) -> BAProblem:
 def landmarks(lm_pos, lm_is3d, device=None):
     """Landmark arenas (positions (L, 3), is3d (L,)) -> tensors."""
     return tensor(lm_pos, device), tensor(lm_is3d, device, torch.bool)
+
+
+def pose_graph_problem(p, device=None) -> PoseGraphProblem:
+    return PoseGraphProblem(*(tensor(getattr(p, f), device)
+                              for f in PoseGraphProblem._fields))
+
+
+_MAP_DEVICE_CACHES = ("device", "_dev_pos", "_dev_is3d", "_dev_valid",
+                      "_device_dirty")
+
+
+def map_store(m, device=None) -> MapStore:
+    """JAX ``MapStore`` -> port ``MapStore``: a deep copy of its host state
+    (landmark arenas, observation sets, free list, keyframe records,
+    covisibility); the device mirrors are rebuilt on the port's side."""
+    out = MapStore(lm_capacity=m.cap, kf_capacity=m.kf_capacity,
+                   device=torch.device("cpu") if device is None else device)
+    for k, v in vars(m).items():
+        if k not in _MAP_DEVICE_CACHES and k != "keyframes":
+            setattr(out, k, copy.deepcopy(v))
+    out.keyframes = {k: KeyframeRecord(**{
+        f: copy.deepcopy(getattr(rec, f)) for f in vars(rec)})
+        for k, rec in m.keyframes.items()}
+    out._device_dirty = True
+    return out

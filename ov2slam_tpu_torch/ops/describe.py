@@ -108,3 +108,23 @@ def hamming_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All-pairs Hamming: a (N, 8), b (M, 8) -> (N, M) int32."""
     return hamming_dist(a[:, None, :], b[None, :, :])
+
+
+def knn2_match(desc_a: torch.Tensor, valid_a: torch.Tensor,
+               desc_b: torch.Tensor, valid_b: torch.Tensor):
+    """Two-best matching a -> b (the knnMatch(k=2) + ratio-test building
+    block, loop_closer.cpp:378-459): (best_idx (N,), best_dist (N,),
+    second_dist (N,)), int64 indices and int32 distances. Invalid columns
+    and rows get the distance N_BITS + 1. Ties go to the first column
+    (``torch.argmin`` returns the first minimum, as ``jnp.argmin`` does);
+    the second-best distance masks only the best column, so a tie gives
+    second == best."""
+    BIG = N_BITS + 1
+    d = hamming_matrix(desc_a, desc_b)
+    d = torch.where(valid_b[None, :], d, torch.full_like(d, BIG))
+    best = torch.argmin(d, dim=1)
+    bestd = torch.gather(d, 1, best[:, None])[:, 0]
+    d2 = d.scatter(1, best[:, None], BIG)
+    secondd = torch.amin(d2, dim=1)
+    bestd = torch.where(valid_a, bestd, torch.full_like(bestd, BIG))
+    return best, bestd, secondd

@@ -1,6 +1,7 @@
-"""Bundle adjustment: Schur-complement Levenberg-Marquardt or Powell dogleg
-(port of ``ov2slam_tpu/opt/ba.py::solve_ba``; pose-only refinement and the
-structure-only solver are not ported yet).
+"""Bundle adjustment: Schur-complement Levenberg-Marquardt or Powell dogleg,
+and the structure-only solver (port of ``ov2slam_tpu/opt/ba.py``:
+``solve_ba`` and ``solve_structure_only``; pose-only refinement is not
+ported).
 
 Replaces Ceres SPARSE_SCHUR + LM for the reference's local BA
 (optimizer.cpp:34-897). "Pad everything, mask everything": F pose slots, L
@@ -102,14 +103,33 @@ def _anchor_jacobian_fix(p: BAProblem, R, t, J_anc_wa):
     return -(J_anc_wa @ Ad)
 
 
+def _th2(p: BAProblem, th2_mono: float, th2_stereo: float) -> torch.Tensor:
+    """(O,) chi2 threshold of each observation (stereo for right-camera
+    ones); made on the device, no host copy."""
+    x = p.obs_px[:, 0]
+    return torch.where(p.obs_right, torch.full_like(x, th2_stereo),
+                       torch.full_like(x, th2_mono))
+
+
+def _sqrtw(p: BAProblem, r: torch.Tensor, th2: torch.Tensor, robust: bool):
+    """(sqrt-IRLS weight with the validity mask folded in, chi2) per
+    observation (the JAX package's ``_sqrtw``)."""
+    chi2 = torch.sum(r * r, dim=-1)
+    sw = res.huber_weight(chi2, th2) if robust else torch.ones_like(chi2)
+    return p.obs_valid.to(r.dtype) * sw, chi2
+
+
+def _rho(chi2: torch.Tensor, th2: torch.Tensor, robust: bool) -> torch.Tensor:
+    """Per-observation Huber (robust) or squared cost."""
+    if not robust:
+        return chi2
+    th = torch.sqrt(th2)
+    return torch.where(chi2 <= th2, chi2, 2.0 * th * torch.sqrt(chi2) - th2)
+
+
 def _robust_cost(p, chi2, th2, robust: bool):
-    w_valid = p.obs_valid.to(chi2.dtype)
-    if robust:
-        th = torch.sqrt(th2)
-        rho = torch.where(chi2 <= th2, chi2, 2.0 * th * torch.sqrt(chi2) - th2)
-    else:
-        rho = chi2
-    return torch.sum(rho * w_valid)
+    """Total cost over the valid observations (the JAX package's ``_cost``)."""
+    return torch.sum(_rho(chi2, th2, robust) * p.obs_valid.to(chi2.dtype))
 
 
 def solve_ba(p: BAProblem, invdepth: bool = True, max_iters: int = 5,
@@ -154,8 +174,7 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
     nl = 1 if invdepth else 3
     pose_w = p.pose_opt.to(dt)
     lm_w = p.lm_valid.to(dt)
-    th2 = torch.where(p.obs_right, torch.tensor(th2_stereo, dtype=dt, device=dev),
-                      torch.tensor(th2_mono, dtype=dt, device=dev))
+    th2 = _th2(p, th2_mono, th2_stereo)
     anc_idx = p.anchor[p.obs_lm] if invdepth else p.obs_kf
     ff = p.obs_kf * F + p.obs_kf          # flat (F*F) block index
     eyeL = torch.eye(nl, dtype=dt, device=dev)
@@ -169,9 +188,7 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
         r, J_obs, J_anc, J_lm, _ = _residuals_all(p, R, t, Xw, lam, invdepth)
         if invdepth:
             J_anc = _anchor_jacobian_fix(p, R, t, J_anc)
-        chi2 = torch.sum(r * r, dim=-1)
-        sw = res.huber_weight(chi2, th2) if robust else torch.ones_like(chi2)
-        w = p.obs_valid.to(dt) * sw
+        w, chi2 = _sqrtw(p, r, th2, robust)
         Jo = J_obs * (w * pose_w[p.obs_kf])[:, None, None]
         Ja = J_anc * (w * pose_w[anc_idx])[:, None, None]
         Jl = J_lm * (w * lm_w[p.obs_lm])[:, None, None]
@@ -367,3 +384,65 @@ def _dogleg(params0, normals0, cost0, build, eval_cost, solve_step,
         if bool(n_h < 1e-7):
             break
     return params + (cost, it)
+
+
+def solve_structure_only(p: BAProblem, max_iters: int = 3,
+                         th2_mono: float = 5.9915, th2_stereo: float = 7.8147,
+                         robust: bool = True) -> BAResult:
+    """Refine landmark positions with every pose held fixed
+    (Optimizer::structureOnlyBA, optimizer.cpp:2594-2782). With poses
+    constant the normal equations are block-diagonal, one 3x3 block per
+    landmark: batched damped Gauss-Newton with a per-landmark accept/reject
+    (landmark costs are independent), no Schur complement. Landmarks are
+    optimized in XYZ; inverse depths are recomputed from the fixed anchor
+    poses afterwards. Landmarks with fewer than 2 valid observations stay
+    as they are. A fixed number of iterations, no host read."""
+    dt, dev = p.Xw.dtype, p.Xw.device
+    L = p.Xw.shape[0]
+    th2 = _th2(p, th2_mono, th2_stereo)
+    n_obs = torch.zeros(L, dtype=torch.int64, device=dev).index_add_(
+        0, p.obs_lm, p.obs_valid.to(torch.int64))
+    sel = p.lm_valid & (n_obs >= 2)
+
+    def scatter(vals):
+        out = torch.zeros((L,) + tuple(vals.shape[1:]), dtype=dt, device=dev)
+        return out.index_add_(0, p.obs_lm, vals)
+
+    def eqs(Xw):
+        r, _, _, Jx, _ = _residuals_all(p, p.R, p.t, Xw, p.lam, False)
+        w, chi2 = _sqrtw(p, r, th2, robust)
+        Jw = Jx * w[:, None, None]
+        rw = r * w[:, None]
+        H = scatter(torch.einsum("oij,oik->ojk", Jw, Jw))
+        g = scatter(torch.einsum("oij,oi->oj", Jw, rw))
+        c = scatter(_rho(chi2, th2, robust) * p.obs_valid.to(dt))
+        return H, g, c
+
+    zero = torch.zeros((), dtype=dt, device=dev)
+    H, g, cost_l = eqs(p.Xw)
+    cost0 = torch.sum(torch.where(sel, cost_l, zero))
+    damp = torch.full((L,), 1e-3, dtype=dt, device=dev)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    X = p.Xw
+    for _ in range(max_iters):
+        dH = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8)
+        Hd = H + damp[:, None, None] * dH[:, :, None] * eye3 + 1e-10 * eye3
+        dx = -torch.einsum("lij,lj->li", smallalg.inv3(Hd), g)
+        Xn = torch.where(sel[:, None], X + dx, X)
+        Hn, gn, cn = eqs(Xn)
+        better = (cn < cost_l) & sel
+        X = torch.where(better[:, None], Xn, X)
+        H = torch.where(better[:, None, None], Hn, H)
+        g = torch.where(better[:, None], gn, g)
+        cost_l = torch.where(better, cn, cost_l)
+        damp = torch.clamp(torch.where(better, damp * 0.5, damp * 4.0), 1e-8, 1e4)
+    cost = torch.sum(torch.where(sel, cost_l, zero))
+
+    # inverse depths in the (fixed) anchor frames
+    z_anc = lie.se3_apply(SE3(p.R[p.anchor], p.t[p.anchor]), X)[..., 2]
+    lam_out = torch.where(sel, 1.0 / torch.clamp(z_anc, min=1e-6), p.lam)
+
+    # final chi2 / depth-positivity sweep (the gate of solve_ba)
+    r, _, _, _, pos = _residuals_all(p, p.R, p.t, X, lam_out, False)
+    inl = p.obs_valid & (torch.sum(r * r, dim=-1) <= th2) & pos
+    return BAResult(p.R, p.t, X, lam_out, inl, cost0, cost, max_iters)

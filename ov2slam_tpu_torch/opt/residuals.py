@@ -1,11 +1,12 @@
-"""Reprojection residuals + analytic Jacobians (port of
-``ov2slam_tpu/opt/residuals.py``, reprojection factors only).
+"""Reprojection and relative-pose residuals + analytic Jacobians (port of
+``ov2slam_tpu/opt/residuals.py``).
 
 The reference's hand-written Ceres cost functions
 (ceres_parametrization.cpp:107-713): mono and right-cam reprojection with
 XYZ or anchored inverse-depth landmarks and the motion-only variant, all
 under the left-multiplicative SE(3) update ``T' = exp(xi) T``, batched over
-observations. Poses are world-to-camera; pixels are undistorted.
+observations, and the pose-graph's relative-pose factor. Poses are
+world-to-camera; pixels are undistorted.
 """
 
 from __future__ import annotations
@@ -117,3 +118,44 @@ def huber_weight(chi2: torch.Tensor, th2) -> torch.Tensor:
     w2 = torch.where(chi2 <= th2, torch.ones_like(chi2),
                      torch.sqrt(th2 / torch.clamp(chi2, min=1e-12)))
     return torch.sqrt(w2)
+
+
+# ---------------------------------------------------------------------------
+# factor: relative SE(3) pose (LeftSE3RelativePoseError,
+# se3left_parametrization.hpp:76-99): r = log(T_ab_meas^-1 T_a T_b^-1) for
+# world-to-cam poses.
+# ---------------------------------------------------------------------------
+
+def relpose_residual(T_a: SE3, T_b: SE3, T_ab_meas: SE3) -> torch.Tensor:
+    """(..., 6) residual: log(meas^-1 (T_a T_b^-1)) for world-to-cam poses,
+    meas = T_a T_b^-1 at the measurement time."""
+    T_ab = lie.se3_compose(T_a, lie.se3_inverse(T_b))
+    return lie.se3_log(lie.se3_compose(lie.se3_inverse(T_ab_meas), T_ab))
+
+
+def se3_ad(xi: torch.Tensor) -> torch.Tensor:
+    """(..., 6, 6) adjoint of the Lie algebra: ad([v, w]) = [[w^, v^], [0, w^]]."""
+    W = lie.hat(xi[..., 3:])
+    V = lie.hat(xi[..., :3])
+    top = torch.cat([W, V], dim=-1)
+    bot = torch.cat([torch.zeros_like(W), W], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_left_jac_inv(xi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SE(3), Bernoulli series truncated at ad^2:
+    J_l^-1(xi) ~ I - ad(xi)/2 + ad(xi)^2/12 (the residual itself stays
+    exact)."""
+    A = se3_ad(xi)
+    I = torch.eye(6, dtype=xi.dtype, device=xi.device).expand(A.shape)
+    return I - 0.5 * A + (1.0 / 12.0) * (A @ A)
+
+
+def relpose_jacobians(T_a: SE3, T_b: SE3, T_ab_meas: SE3):
+    """Closed-form 6x6 Jacobians wrt left-mult updates of T_a and T_b. With
+    M = meas^-1 T_a T_b^-1 and r = log(M): Ja = Jl^-1(r) Ad(meas^-1),
+    Jb = -Jl^-1(-r). Closed form on purpose: the arccos-based log has no
+    usable derivative at zero residual."""
+    r = relpose_residual(T_a, T_b, T_ab_meas)
+    Ad_minv = lie.se3_adjoint(lie.se3_inverse(T_ab_meas))
+    return r, se3_left_jac_inv(r) @ Ad_minv, -se3_left_jac_inv(-r)

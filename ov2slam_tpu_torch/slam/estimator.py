@@ -8,14 +8,23 @@ padded ``BAProblem`` from the host map store, run the Schur-LM (or dogleg)
 solver on the device, write results back, sweep outlier observations, and
 cull redundant keyframes. In the pipelined mode the solve is dispatched at
 one keyframe (``begin_local_ba``) and written back frames later
-(``finalize_local_ba``), its results fetched in between. The local BA always has one fixed shape (F, L, O) = (24, 2048,
-12288); windows beyond it are truncated by covisibility score and counted
-in ``n_truncations``. Span, full and windowed BA are not ported yet.
+(``finalize_local_ba``), its results fetched in between. The local BA
+always has one fixed shape (F, L, O) = (24, 2048, 12288); windows beyond it
+are truncated by covisibility score and counted in ``n_truncations``.
+
+Span BA (the loose BA after a loop closure), full BA (``do_full_ba``, at
+``write_results``) and the structure-only refinement of merged landmarks
+build their problems through the same window builder with other caps, and
+pad them to the live counts of keyframes, landmarks and observations: the
+padding adds exact zeros, and eager PyTorch has no compiles to bound (the
+JAX package pads to coarse buckets to bound XLA recompiles). Span and full
+BA run the matrix-free Schur-PCG solver (``opt/ba_global.py``).
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -25,6 +34,7 @@ import torch
 from ov2slam_tpu_torch.core.lie import SE3
 from ov2slam_tpu_torch.device import Fetch, resolve_device
 from ov2slam_tpu_torch.opt import ba as ba_mod
+from ov2slam_tpu_torch.opt import ba_global
 from ov2slam_tpu_torch.opt.residuals import Calib
 from ov2slam_tpu_torch.slam.map import MapStore
 
@@ -55,6 +65,8 @@ class Estimator:
         self.T_rl = T_rl
         self.device = resolve_device(device)
         self.n_truncations = 0
+        # budgeted span solves that hit their wall-clock limit
+        self.n_ba_timeouts = 0
 
     # ------------------------------------------------------------------
     def build_problem(self, m: MapStore, new_kfid: int, max_kfs=BA_MAX_KFS,
@@ -64,8 +76,9 @@ class Estimator:
         """Window selection mirroring optimizer.cpp:128-267: KFs with
         covisibility score >= nmin_covscore are optimized, other observers
         of window landmarks enter as constants; >= 1 constant KF (stereo)
-        fixes the gauge. The problem is padded to (max_kfs, max_lms,
-        max_obs)."""
+        fixes the gauge. At the default caps the problem is padded to
+        them (the local BA's one shape); at other caps to the live counts
+        (capped by them)."""
         p = self.params
         covis = m.covis.get(new_kfid, {})
         ranked = sorted(covis.items(), key=lambda kv: -kv[1])
@@ -108,8 +121,12 @@ class Estimator:
         while len(const_kfs) < nmincst and len(opt_kfs) > 1:
             const_kfs.append(opt_kfs.pop())
 
-        F, L, O = max_kfs, max_lms, max_obs
-        kf_list = (opt_kfs + const_kfs)[:F]
+        fixed = (max_kfs, max_lms, max_obs) == (BA_MAX_KFS, BA_MAX_LMS,
+                                                 BA_MAX_OBS)
+        kf_list = opt_kfs + const_kfs
+        F = max_kfs if fixed else min(len(kf_list), max_kfs)
+        L = max_lms if fixed else len(lm_set)
+        kf_list = kf_list[:F]
         if all(k in opt_set for k in kf_list) and len(kf_list) > 1:
             opt_set.discard(kf_list[-1])
         kf_slot = {kfid: i for i, kfid in enumerate(kf_list)}
@@ -177,6 +194,7 @@ class Estimator:
                 mslot.append(slots[sel])
                 mright.append(np.full(sel.sum(), right))
         okf = np.concatenate(okf)
+        O = max_obs if fixed else min(len(okf), max_obs)
         if len(okf) > O:
             self.n_truncations += 1
             _log.warning("BA window at kf=%d truncated: %d observations > "
@@ -300,6 +318,186 @@ class Estimator:
         out.n_outliers = n_out
         out.cost0 = float(cost0_np)
         out.cost = float(cost_np)
+        return out
+
+    # ------------------------------------------------------------------
+    def full_ba(self, m: MapStore, max_kfs: int = 512, max_lms: int = 16384,
+                max_obs: int = 131072, max_iters: int = 12) -> BAOutcome:
+        """Final full BA pass (Optimizer::fullBA, optimizer.cpp:1674-2333,
+        run from write_results when do_full_ba): one Schur-PCG solve over
+        every keyframe (gauge = the oldest); overlapping dense-window sweeps
+        only beyond max_kfs keyframes."""
+        return self.span_ba(m, sorted(m.keyframes), max_kfs, max_lms,
+                            max_obs, max_iters)
+
+    def span_ba(self, m: MapStore, kfs, max_kfs: int = 512,
+                max_lms: int = 16384, max_obs: int = 131072,
+                max_iters: int = 12, cg_iters: int = 48,
+                time_budget_s: Optional[float] = None) -> BAOutcome:
+        """One global solve over a keyframe span (the oldest 1 (stereo) or
+        2 (mono) KFs fixed as gauge) by the Schur-PCG solver: the final
+        full BA and the loose BA over a loop's [loop KF, new KF] range
+        (optimizer.cpp:995-1024, :1674-2333). ``time_budget_s`` bounds wall
+        time like the reference's max_solver_time (optimizer.cpp:460-468):
+        LM iterations run in chunks with a clock check between them."""
+        p = self.params
+        kfs = [k for k in sorted(kfs) if k in m.keyframes]
+        if len(kfs) < 3:
+            return BAOutcome()
+        if len(kfs) > max_kfs:
+            return self.windowed_ba(m, kfs, 64, 8192, 32768, max_iters)
+        newest = kfs[-1]
+        gauge = set(kfs[:1 if p.stereo else 2])
+        saved = dict(m.covis.get(newest, {}))
+        try:
+            # the whole span through the window builder: span KFs get a
+            # covisibility score above nmin_covscore (optimized), the gauge
+            # 0 (it re-enters as constant observers)
+            m.covis[newest] = {k: (0 if k in gauge else 10_000)
+                               for k in kfs if k != newest}
+            built = self.build_problem(m, newest, max_kfs, max_lms, max_obs)
+        finally:
+            m.covis[newest] = saved
+        out = BAOutcome()
+        if built is None:
+            return out
+        prob, kf_list, lm_ids, meta = built
+        if time_budget_s is None:
+            result = ba_global.solve_ba_global(
+                prob, invdepth=p.buse_inv_depth, max_iters=max_iters,
+                robust=True, th2_mono=p.robust_mono_th,
+                th2_stereo=p.robust_stereo_th, cg_iters=cg_iters,
+                l2_refine=p.apply_l2_after_robust)
+        else:
+            result = self._solve_global_budgeted(prob, max_iters, cg_iters,
+                                                 time_budget_s)
+        return self._writeback(m, kf_list, lm_ids, meta, result, out)
+
+    # LM iterations per budgeted chunk
+    _BUDGET_CHUNK = 3
+
+    def _solve_global_budgeted(self, prob, max_iters: int, cg_iters: int,
+                               time_budget_s: float) -> ba_mod.BAResult:
+        """Chunked Schur-PCG LM with a wall-clock check between chunks (Ceres'
+        max_solver_time_in_seconds and the cooperative signalStopLocalBA,
+        optimizer.cpp:460-468, :2334-2344). The best state carries across
+        chunks (the damping restarts per chunk). The clock is read after
+        the chunk's cost is on the host, so it measures the device work,
+        not only its launch."""
+        p = self.params
+        kw = dict(invdepth=p.buse_inv_depth, max_iters=self._BUDGET_CHUNK,
+                  th2_mono=p.robust_mono_th, th2_stereo=p.robust_stereo_th,
+                  cg_iters=cg_iters, l2_refine=False)
+        t0 = time.monotonic()
+        cur, done, cost0, result = prob, 0, None, None
+        while done < max_iters:
+            r = ba_global.solve_ba_global(cur, robust=True, **kw)
+            float(r.cost)                   # wait for the chunk
+            done += self._BUDGET_CHUNK
+            cost0 = r.cost0 if cost0 is None else cost0
+            result = r._replace(cost0=cost0)
+            cur = cur._replace(R=r.R, t=r.t, Xw=r.Xw, lam=r.lam)
+            if time.monotonic() - t0 > time_budget_s:
+                self.n_ba_timeouts += 1
+                break
+        if result is None:                  # max_iters <= 0: one chunk
+            result = ba_global.solve_ba_global(cur, robust=True, **kw)
+            cur = cur._replace(R=result.R, t=result.t, Xw=result.Xw,
+                               lam=result.lam)
+        if p.apply_l2_after_robust and time.monotonic() - t0 < time_budget_s:
+            # L2 re-solve on the robust phase's inliers
+            r2 = ba_global.solve_ba_global(
+                cur._replace(obs_valid=result.obs_inlier), robust=False, **kw)
+            float(r2.cost)
+            result = ba_mod.BAResult(
+                r2.R, r2.t, r2.Xw, r2.lam, r2.obs_inlier & result.obs_inlier,
+                result.cost0, r2.cost, result.n_iters + r2.n_iters)
+        return result
+
+    def windowed_ba(self, m: MapStore, kfs, max_kfs: int = 64,
+                    max_lms: int = 8192, max_obs: int = 32768,
+                    max_iters: int = 10) -> BAOutcome:
+        """Bundle-adjust a keyframe span beyond the global solver's
+        capacity with overlapping dense windows, oldest to newest: each
+        window re-optimizes its keyframes while the first half of its
+        overlap with the previous window enters as constant anchors (the
+        first window anchors on the oldest KF(s), optimizer.cpp:1736-1747)."""
+        out = BAOutcome()
+        kfs = sorted(kfs)
+        if len(kfs) < 3:
+            return out
+        win = max_kfs - 2
+        if len(kfs) <= win:
+            windows = [kfs]
+        else:
+            stride = max(1, win // 2)
+            starts = list(range(0, len(kfs) - win, stride)) + [len(kfs) - win]
+            windows = [kfs[s:s + win] for s in starts]
+        for wi, W in enumerate(windows):
+            newest = W[-1]
+            overlap = set(W[:max(1, win // 2)] if wi > 0
+                          else W[:(1 if self.params.stereo else 2)])
+            saved = dict(m.covis.get(newest, {}))
+            try:
+                m.covis[newest] = {k: (0 if k in overlap else 10_000)
+                                   for k in W if k != newest}
+                out = self.local_ba_with_caps(m, newest, max_kfs, max_lms,
+                                              max_obs, max_iters)
+            finally:
+                m.covis[newest] = saved
+        return out
+
+    def local_ba_with_caps(self, m: MapStore, kfid: int, max_kfs: int,
+                           max_lms: int, max_obs: int, max_iters: int,
+                           structure_only: bool = False,
+                           only_lmids=None) -> BAOutcome:
+        """A BA window at other caps, poses and landmarks written back (no
+        outlier sweep). ``structure_only`` holds every pose fixed and runs
+        the block-diagonal solver (Optimizer::structureOnlyBA,
+        optimizer.cpp:2594-2782); ``only_lmids`` refines exactly those
+        landmarks, every other one constant."""
+        built = self.build_problem(m, kfid, max_kfs, max_lms, max_obs)
+        out = BAOutcome()
+        if built is None:
+            return out
+        prob, kf_list, lm_ids, meta = built
+        if structure_only:
+            prob = prob._replace(pose_opt=torch.zeros_like(prob.pose_opt))
+            meta["pose_opt"] = np.zeros_like(meta["pose_opt"])
+        if only_lmids is not None:
+            sel = np.isin(lm_ids, np.asarray(sorted(only_lmids), np.int64))
+            keep = np.zeros(int(prob.lm_valid.shape[0]), bool)
+            keep[:len(sel)] = sel
+            prob = prob._replace(
+                lm_valid=prob.lm_valid & torch.from_numpy(keep).to(self.device))
+            meta["lm_valid"] = meta["lm_valid"] & keep
+            if not keep.any():
+                return out
+        if structure_only:
+            p = self.params
+            result = ba_mod.solve_structure_only(
+                prob, max_iters=max_iters, th2_mono=p.robust_mono_th,
+                th2_stereo=p.robust_stereo_th)
+        else:
+            result = self._solve(prob, max_iters)
+        R_np, t_np, Xw_np, lam_np, cost0, cost = Fetch(
+            result.R, result.t, result.Xw, result.lam, result.cost0,
+            result.cost).result()
+        for i, kfid_i in enumerate(kf_list):
+            if meta["pose_opt"][i]:
+                T = np.eye(4, dtype=np.float32)
+                T[:3, :3] = R_np[i]
+                T[:3, 3] = t_np[i]
+                m.keyframes[kfid_i].T_cw = T
+        nL = len(lm_ids)
+        in_prob = meta["lm_valid"][:nL]
+        m.update_positions_from_ba(lm_ids[in_prob], Xw_np[:nL][in_prob],
+                                   lam_np[:nL][in_prob])
+        out.ran = True
+        out.n_kfs = len(kf_list)
+        out.n_lms = nL
+        out.cost0 = float(cost0)
+        out.cost = float(cost)
         return out
 
     # ------------------------------------------------------------------

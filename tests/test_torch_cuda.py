@@ -354,3 +354,143 @@ def test_pipelined_stereo_on_card_matches_cpu(cuda):
     assert abs(ate_rmse(eg, gt_t) - ate_rmse(ec, gt_t)) <= 1e-3
     assert np.linalg.norm(eg - ec, axis=1).max() <= 5e-3
     assert lc == 0 and lg == (n - 1) + kg
+
+
+def _chain_graph(seed, n=12, pad=4):
+    """A drifted n-node pose chain with a loop edge at the true relative
+    pose (numpy, no JAX): PoseGraphProblem fields as numpy arrays."""
+    from ov2slam_tpu_torch.core import lie
+    rng = np.random.default_rng(seed)
+    step = lie.se3_exp(torch.tensor([0.25, 0, 0, 0, 2 * np.pi / n, 0]))
+    gt = [torch.eye(4)]
+    for _ in range(1, n):
+        gt.append(step.matrix() @ gt[-1])
+    dr = [gt[0]]
+    for i in range(1, n):
+        rel = gt[i] @ torch.linalg.inv(gt[i - 1])
+        noise = lie.se3_exp(torch.from_numpy(np.concatenate([
+            rng.normal(0, 0.01, 3), rng.normal(0, 0.002, 3)]).astype(np.float32)))
+        dr.append(noise.matrix() @ rel @ dr[-1])
+    edges = [(i, i - 1, dr[i] @ torch.linalg.inv(dr[i - 1])) for i in range(1, n)]
+    edges.append((n - 1, 0, gt[n - 1] @ torch.linalg.inv(gt[0])))
+    E = len(edges) + pad
+    meas = torch.eye(4).repeat(E, 1, 1)
+    meas[:len(edges)] = torch.stack([m for _, _, m in edges])
+    T = torch.stack(dr)
+    ei = torch.zeros(E, dtype=torch.int64)
+    ej = torch.zeros(E, dtype=torch.int64)
+    ei[:len(edges)] = torch.tensor([i for i, _, _ in edges])
+    ej[:len(edges)] = torch.tensor([j for _, j, _ in edges])
+    w = torch.zeros(E)
+    w[:len(edges)] = 1.0
+    return (T[:, :3, :3], T[:, :3, 3], torch.arange(n) > 0, ei, ej,
+            meas[:, :3, :3], meas[:, :3, 3], w)
+
+
+@pytest.mark.cuda
+def test_pose_graph_on_card_matches_cpu(cuda):
+    """solve_pose_graph (single and batched) on the card against the CPU:
+    poses within 1e-4 (index_add_ atomics on the card sum in another
+    order), and no host sync inside the solve."""
+    from ov2slam_tpu_torch.opt import posegraph as pg
+    probs = [pg.PoseGraphProblem(*_chain_graph(s)) for s in (0, 1)]
+    batch = pg.PoseGraphProblem(*(torch.stack(f) for f in zip(*probs)))
+    for prob in (probs[0], batch):
+        oc = pg.solve_pose_graph(prob, max_iters=10)
+        on_card = pg.PoseGraphProblem(*(a.to(cuda) for a in prob))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            og = pg.solve_pose_graph(on_card, max_iters=10)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert float(og.cost.max()) < 0.5 * float(og.cost0.min())
+        np.testing.assert_allclose(og.R.cpu().numpy(), oc.R.numpy(), atol=1e-4)
+        np.testing.assert_allclose(og.t.cpu().numpy(), oc.t.numpy(), atol=1e-4)
+
+
+def _ba_problem(seed, n_kf=8, n_lm=200):
+    """A stereo inverse-depth BA problem built in torch (no JAX): noisy
+    poses and depths, observations 0.5 px noisy, first two poses gauge."""
+    from ov2slam_tpu_torch.core import lie
+    from ov2slam_tpu_torch.opt import residuals as res
+    from ov2slam_tpu_torch.opt.ba import BAProblem
+    g = torch.Generator().manual_seed(seed)
+    cal = res.Calib(450.0, 450.0, 376.0, 240.0)
+    T_rl = lie.SE3(torch.eye(3), torch.tensor([-0.11, 0.0, 0.0]))
+    Rs = lie.so3_exp(0.01 * torch.randn(n_kf, 3, generator=g))
+    ts = torch.stack([torch.tensor([-0.3 * i, 0.0, 0.0]) for i in range(n_kf)])
+    X = torch.rand(n_lm, 3, generator=g) * torch.tensor([6.0, 4.0, 4.0]) \
+        + torch.tensor([-3.0 + 0.3 * n_kf / 2, -2.0, 6.0])
+    anchor = torch.randint(0, n_kf, (n_lm,), generator=g)
+    Xa = lie.se3_apply(lie.SE3(Rs[anchor], ts[anchor]), X)
+    obs_kf, obs_lm, obs_px, obs_r = [], [], [], []
+    for i in range(n_kf):
+        for right in (False, True):
+            Xc = lie.se3_apply(lie.SE3(Rs[i], ts[i]), X)
+            if right:
+                Xc = lie.se3_apply(T_rl, Xc)
+            px = res.project(cal, Xc) + 0.5 * torch.randn(n_lm, 2, generator=g)
+            keep = (anchor != i) | right
+            obs_kf.append(torch.full((int(keep.sum()),), i))
+            obs_lm.append(torch.arange(n_lm)[keep])
+            obs_px.append(px[keep])
+            obs_r.append(torch.full((int(keep.sum()),), right))
+    pose_opt = torch.arange(n_kf) >= 2
+    dt = 0.02 * torch.randn(n_kf, 3, generator=g) * pose_opt[:, None]
+    return BAProblem(
+        R=Rs, t=ts + dt, pose_opt=pose_opt, Xw=X, anchor=anchor,
+        bearing=Xa / Xa[:, 2:], lam=1.0 / Xa[:, 2] * (1 + 0.05 * torch.randn(
+            n_lm, generator=g)), lm_valid=torch.ones(n_lm, dtype=torch.bool),
+        obs_kf=torch.cat(obs_kf), obs_lm=torch.cat(obs_lm),
+        obs_px=torch.cat(obs_px), obs_right=torch.cat(obs_r),
+        obs_valid=torch.ones(sum(len(o) for o in obs_kf), dtype=torch.bool),
+        calib_l=cal, calib_r=cal, T_rl=T_rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2_refine", [False, True])
+def test_solve_ba_global_on_card_matches_cpu(cuda, l2_refine):
+    """The Schur-PCG BA on the card against the CPU: poses within 1e-4
+    (rad, m), inverse depths within 1e-3 relative, costs within 1e-4
+    relative, inlier masks equal; no host sync inside the solve."""
+    from ov2slam_tpu_torch.core.lie import SE3
+    from ov2slam_tpu_torch.opt import ba_global
+    prob = _ba_problem(3)
+    oc = ba_global.solve_ba_global(prob, max_iters=8, l2_refine=l2_refine)
+    on_card = prob._replace(**{k: getattr(prob, k).to(cuda) for k in (
+        "R", "t", "pose_opt", "Xw", "anchor", "bearing", "lam", "lm_valid",
+        "obs_kf", "obs_lm", "obs_px", "obs_right", "obs_valid")},
+        T_rl=SE3(prob.T_rl.R.to(cuda), prob.T_rl.t.to(cuda)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        og = ba_global.solve_ba_global(on_card, max_iters=8, l2_refine=l2_refine)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(og.cost) < float(og.cost0)
+    np.testing.assert_allclose(og.R.cpu().numpy(), oc.R.numpy(), atol=1e-4)
+    np.testing.assert_allclose(og.t.cpu().numpy(), oc.t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(og.lam.cpu().numpy(), oc.lam.numpy(), rtol=1e-3)
+    np.testing.assert_allclose(float(og.cost), float(oc.cost), rtol=1e-4)
+    assert (og.obs_inlier.cpu() == oc.obs_inlier).all()
+
+
+@pytest.mark.cuda
+def test_knn2_match_on_card_matches_cpu(cuda):
+    """Integer distances: the card gives the CPU's indices and distances
+    exactly, ties to the first column included."""
+    from ov2slam_tpu_torch.ops import describe
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(0, 2 ** 32, (512, 8), generator=g, dtype=torch.int64)
+    b = torch.randint(0, 2 ** 32, (300, 8), generator=g, dtype=torch.int64)
+    b[17] = b[5]
+    a[:40] = b[5]
+    va = torch.rand(512, generator=g) > 0.1
+    vb = torch.rand(300, generator=g) > 0.1
+    vb[5] = vb[17] = True
+    oc = describe.knn2_match(a, va, b, vb)
+    og = describe.knn2_match(a.to(cuda), va.to(cuda), b.to(cuda), vb.to(cuda))
+    for x, y in zip(og, oc):
+        assert torch.equal(x.cpu(), y)
+    assert (oc[0][:40] == 5).all()

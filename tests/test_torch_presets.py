@@ -1,11 +1,11 @@
 """The 24 shipped presets (parameters_files/*/*/*.yaml) through the port's
-PyYAML-free loader against the JAX package's PyYAML loader, and which of
-them build a port SlamSystem unchanged.
+PyYAML-free loader against the JAX package's PyYAML loader, and that each
+of them builds a port SlamSystem unchanged.
 
 The loaders must give the same dict, key by key, with the same Python types
 and float64 matrices; ``SlamParams.from_yaml`` the same value in every
-field. The presets without the loop closer (12 of 24) build a system on
-the CPU as shipped; the other 12 raise, naming only ROADMAP item A5.
+field. Every preset builds a system on the CPU as shipped; the 12 with
+``buse_loop_closer`` get a loop closer with the native place index.
 """
 
 import dataclasses
@@ -55,26 +55,27 @@ def test_loader_and_params_match_jax(preset):
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_preset_builds_or_names_only_a5(preset):
+    """Every preset builds (the name dates from when the loop-closing
+    presets raised naming ROADMAP item A5)."""
     p = SlamParams.from_yaml(os.path.join(ROOT, preset))
-    bad = unsupported_settings(p)
-    if not p.buse_loop_closer:
-        assert bad == []
-        s = SlamSystem(p, device="cpu")
-        assert s.params.force_realtime
-        return
-    assert bad and all(item.startswith("A5") for _, item in bad), bad
-    with pytest.raises(NotImplementedError, match="queue A5") as e:
-        SlamSystem(p, device="cpu")
-    assert "A6" not in str(e.value) and "A4" not in str(e.value)
+    assert unsupported_settings(p) == []
+    s = SlamSystem(p, device="cpu")
+    assert s.params.force_realtime
+    assert (s.loopcloser is not None) == bool(p.buse_loop_closer)
+    if p.buse_loop_closer:
+        assert s.loopcloser.detector.index.native
 
 
 def test_half_the_presets_run_unchanged():
+    """All 24 presets run unchanged now (12 did before loop closing was
+    ported)."""
     ok = [f for f in PRESETS
           if not unsupported_settings(SlamParams.from_yaml(os.path.join(ROOT, f)))]
-    assert len(ok) == 12
-    # every mono preset, and the fast stereo ones (no loop closer)
-    assert all("mono" in f or f.startswith(os.path.join("parameters_files", "fast"))
-               for f in ok)
+    assert len(ok) == 24
+    # half of them close loops: the accurate and average stereo ones
+    lc = [f for f in PRESETS
+          if SlamParams.from_yaml(os.path.join(ROOT, f)).buse_loop_closer]
+    assert len(lc) == 12 and not any("mono" in f for f in lc)
 
 
 def test_loader_parses_the_dialect(tmp_path):

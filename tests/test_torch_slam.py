@@ -279,7 +279,8 @@ UNSUPPORTED = {
 # settings that were outside the stereo slice and are ported since
 PORTED = ("mono", "use_clahe", "doepipolar", "dop3p", "btrack_keyframetoframe",
           "force_realtime", "async_ba", "bdo_stereo_rect", "bdo_undist",
-          "use_fast", "use_shi_tomasi", "use_dogleg")
+          "use_fast", "use_shi_tomasi", "use_dogleg", "buse_loop_closer",
+          "do_full_ba")
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
@@ -291,6 +292,7 @@ def test_settings_outside_the_slice_raise(name):
     if name in PORTED:
         s = SlamSystem(SlamParams.from_dict(d), device="cpu")
         assert getattr(s.params, name)
+        assert (s.loopcloser is not None) == (name == "buse_loop_closer")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlamSystem(SlamParams.from_dict(d), device="cpu")
