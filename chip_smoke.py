@@ -65,7 +65,9 @@ Phases (any failure raises; nothing falls back to the CPU):
    live and relaxed full-trajectory (``wlc_opt``) ATEs within 1.5x + 5 mm
    of the JAX package's on the CPU, host ms of the loop-closing stage per
    keyframe, of each closure and of its span BA, and of the final passes;
-   then the out-and-back world of ``tests/test_loopclosing.py``
+   every closure must move its query keyframe by at least half the pose
+   jump PnP measured (a correction that did nothing fails); then the
+   out-and-back world of ``tests/test_loopclosing.py``
    (``tests/loop_synthetic_np.py``, 100 frames): synchronous stereo with
    ``do_full_ba`` (a loop closes, the local-map expansion grows the match
    set, the three final-pass files are written with a finite row per frame,
@@ -73,11 +75,16 @@ Phases (any failure raises; nothing falls back to the CPU):
    pipelined stereo (a loop closes, one pose per frame, no step > 0.25 m),
    mono (a loop closes, Sim(3) ``wlc_opt`` ATE < 0.08 and <= 1.2x live +
    1 mm) and the stereo kidnap (relocalized within 0.1 m, a new tracking
-   chain). Every path launches ``klt_track`` exactly once per tracking call
-   besides one per keyframe stereo match, and ``lk_iterate`` never. The four
-   out-and-back runs are processes of their own (``--loop-run NAME``),
-   started together and run beside phases 9-10 (their host times are not
-   clean timings); ``accurate_stereo`` runs alone after them.
+   chain), each closure under the same gate on its query keyframe. Every
+   path launches ``klt_track`` exactly once per tracking call besides one
+   per keyframe stereo match, and ``lk_iterate`` never. Every loop path
+   runs under PyTorch's deterministic algorithms
+   (``torch_preset_tiers.deterministic``; ``CUBLAS_WORKSPACE_CONFIG`` is
+   set before the card is first used), so that its ATE repeats from run to
+   run on the card. Phases 1-10 and ``accurate_stereo`` run alone, one
+   after the other, so their times stay comparable; the four out-and-back
+   runs come last, as processes of their own (``--loop-run NAME``) started
+   together, so their host times are not clean timings.
 
 The hard sequence is rendered once, at the start, by worker processes.
 
@@ -104,6 +111,7 @@ import contextlib
 import functools
 import inspect
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -182,6 +190,12 @@ ATE_SLACK, ATE_ABS = 1.5, 0.005
 # their gates (tests/test_loopclosing.py's)
 LOOP_RUNS = ("oab_stereo", "oab_stereo_rt", "oab_mono", "oab_kidnap")
 OAB_ATE, OAB_MAX_STEP, RELOC_ERR, MIN_INLIERS = 0.08, 0.25, 0.1, 30
+# a closure moves its query keyframe by at least this share of the pose jump
+# PnP measured: the local pose graph spreads the loop edge's error over the
+# chain's n edges and the loop edge, all of unit weight, so the query
+# keyframe moves by about n / (n + 1) of the jump (n >= 2); a correction
+# that did nothing moves it by 0
+MOVE_SHARE = 0.5
 
 
 def log(msg: str):
@@ -959,9 +973,10 @@ def phase_tiers(tag: str, dev, names, hard):
 def timing_loop_closer(rec: collections.defaultdict, profile: bool = False):
     """Record in `rec` the host ms (the card synchronised before and after)
     and result of every LoopCloser.process_kf call ("process_kf") and every
-    span BA ("span_ba"); with `profile`, run each verification
-    (``_verify_and_close``) under torch.profiler instead and record its
-    wall ms, device operations and result ("verify")."""
+    span BA ("span_ba"), and for every closure the event and how far the
+    call moved the query keyframe ("moved", m); with `profile`, run each
+    verification (``_verify_and_close``) under torch.profiler instead and
+    record its wall ms, device operations and result ("verify")."""
     from ov2slam_tpu_torch.slam.estimator import Estimator
     from ov2slam_tpu_torch.slam.loopcloser import LoopCloser
     real = {(LoopCloser, "process_kf"): "process_kf",
@@ -977,6 +992,16 @@ def timing_loop_closer(rec: collections.defaultdict, profile: bool = False):
             return out
         return wrapper
 
+    def moving(fn):
+        def wrapper(self, m, kfid):
+            before = kf_position(m, kfid)
+            ev = fn(self, m, kfid)
+            if ev is not None:
+                rec["moved"].append((ev, float(np.linalg.norm(
+                    kf_position(m, ev.query_kf) - before))))
+            return ev
+        return wrapper
+
     def profiled(fn):
         def wrapper(*a, **k):
             box = []
@@ -989,6 +1014,8 @@ def timing_loop_closer(rec: collections.defaultdict, profile: bool = False):
     saved[(LoopCloser, "_verify_and_close")] = LoopCloser._verify_and_close
     for (c, n), key in real.items():
         setattr(c, n, timed(saved[(c, n)], key))
+    LoopCloser.process_kf = timed(moving(saved[(LoopCloser, "process_kf")]),
+                                  "process_kf")
     if profile:
         LoopCloser._verify_and_close = profiled(saved[(LoopCloser, "_verify_and_close")])
     try:
@@ -996,6 +1023,12 @@ def timing_loop_closer(rec: collections.defaultdict, profile: bool = False):
     finally:
         for (c, n), fn in saved.items():
             setattr(c, n, fn)
+
+
+def kf_position(m, kfid: int):
+    """A keyframe's position in the world (None when it is not in the map)."""
+    rec = m.keyframes.get(kfid)
+    return None if rec is None else np.linalg.inv(rec.T_cw.astype(np.float64))[:3, 3]
 
 
 def _ms_summary(ms) -> str:
@@ -1009,7 +1042,8 @@ def _ms_summary(ms) -> str:
 def drive_loop(run, total: dict, profile: bool = False):
     """run(call) under the launch counters of phase_tiers and the
     loop-closer timings (timing_loop_closer): (its row, the timings). The
-    kernels' launches are added to `total`."""
+    kernels' launches are added to `total`; every closure must have moved
+    its query keyframe (MOVE_SHARE)."""
     per_call, stereo_kf = [], []
     rec = collections.defaultdict(list)
 
@@ -1029,6 +1063,11 @@ def drive_loop(run, total: dict, profile: bool = False):
     assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
         f"tracking calls must launch klt_track once: {per_call}")
     assert lk.LAUNCHES == 0, "the per-chunk LK path ran"
+    for ev, moved in rec["moved"]:
+        log(f"[loop] closure ({ev.query_kf}, {ev.match_kf}): PnP pose jump "
+            f"{ev.pose_jump:.5f}, query keyframe moved {moved:.5f} (at least "
+            f"{MOVE_SHARE} x the jump)")
+        assert moved >= MOVE_SHARE * ev.pose_jump, (ev, moved)
     return row, rec
 
 
@@ -1038,8 +1077,10 @@ def phase_lc_tier(dev, total: dict, frames):
     name = "accurate_stereo"
     slam = tiers.make_system("torch", tiers.tier_dict(name), dev, tiers.LC_DETECTOR)
     assert slam.loopcloser is not None and slam.params.force_realtime
-    row, rec = drive_loop(lambda call: tiers.run_tier(
-        slam, frames, False, call=call, sync=torch.cuda.synchronize), total)
+    ops = set()
+    with tiers.deterministic(ops):
+        row, rec = drive_loop(lambda call: tiers.run_tier(
+            slam, frames, False, call=call, sync=torch.cuda.synchronize), total)
     n = row["frames"]
     poses = np.stack(slam.logger.poses_wc)
     ref, ref_opt = REF_ATE[name], REF_ATE[name + "_wlc_opt"]
@@ -1051,7 +1092,9 @@ def phase_lc_tier(dev, total: dict, frames):
         f"{ATE_SLACK * ref_opt + ATE_ABS:.5f}), {row['fps']:.2f} fps over "
         f"frames 1-{n - 1} with the flush, keyframes {row['keyframes']}, "
         f"landmarks {row['landmarks']}, loops [query, match, inliers, merged,"
-        f" jump m] {row['loops']}, final passes {1000 * row['final_seconds']:.0f} ms")
+        f" jump m] {row['loops']}, final passes {1000 * row['final_seconds']:.0f} ms;"
+        f" deterministic algorithms on, operations without a deterministic "
+        f"version: {sorted(ops) or 'none'}")
     log(f"[loop] {name}: loop-closing stage per keyframe without a closure: "
         f"{_ms_summary(per_kf)}; with a closure: {_ms_summary(closures)}; "
         f"span BA: {_ms_summary([ms for ms, _ in rec['span_ba']])}; budget "
@@ -1065,14 +1108,17 @@ def phase_lc_tier(dev, total: dict, frames):
 
 
 def loop_run(dev, name: str, frames, total: dict):
-    """11b. One out-and-back run, as scripts/torch_preset_tiers.py runs it,
-    with tests/test_loopclosing.py's gates."""
+    """11b. One out-and-back run, as scripts/torch_preset_tiers.py runs it
+    (deterministic algorithms on), with tests/test_loopclosing.py's gates."""
     slam = tiers.make_system("torch", tiers.oab_dict(name), dev)
-    row, rec = drive_loop(lambda call: tiers.run_oab(
-        slam, name, frames, call=call, sync=torch.cuda.synchronize),
-        total, profile=name == "oab_stereo")
+    ops = set()
+    with tiers.deterministic(ops):
+        row, rec = drive_loop(lambda call: tiers.run_oab(
+            slam, name, frames, call=call, sync=torch.cuda.synchronize),
+            total, profile=name == "oab_stereo")
     ev = slam.last_loop_event
-    log(f"[loop] {name}: {json.dumps(row)}")
+    log(f"[loop] {name} (beside the other out-and-back runs): {json.dumps(row)};"
+        f" operations without a deterministic version: {sorted(ops) or 'none'}")
     if name == "oab_kidnap":
         assert row["reloc_err"] < RELOC_ERR and row["chain_gen"] >= 1, row
         return
@@ -1098,8 +1144,8 @@ def loop_run(dev, name: str, frames, total: dict):
 
 def start_loop_runs():
     """Start the four out-and-back runs, one process each (this script with
-    --loop-run NAME), all at once: they share the card and run beside the
-    preset tiers, so their host times are not clean timings."""
+    --loop-run NAME), all at once: they share the card and the host, so
+    their host times are not clean timings."""
     return [(name, subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--loop-run", name],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -1258,6 +1304,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
               "here", file=sys.stderr)
         return 2
+    # before cuBLAS is first used: it then keeps one summation order, which
+    # the loop paths' deterministic algorithms rely on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.loop_run:
         return loop_child(args.loop_run)
     t_start = time.perf_counter()
@@ -1300,21 +1349,14 @@ def main() -> int:
     launches, frames = phase_slice(dev)
     mono, mono_frames = phase_mono(dev)
     phase_done("slices")
-    loop = {"klt_track": 0, "lk_iterate": 0}
-    procs = start_loop_runs()
-    try:
-        presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
-        rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
-    except BaseException:
-        for _, proc in procs:
-            proc.kill()
-            proc.wait()
-        raise
+    presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
+    rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
     phase_done("preset and rect tiers")
-    finish_loop_runs(procs, loop)
-    phase_done("out-and-back runs")
+    loop = {"klt_track": 0, "lk_iterate": 0}
     phase_lc_tier(dev, loop, hard_all)
     phase_done("loop tier")
+    finish_loop_runs(start_loop_runs(), loop)
+    phase_done("out-and-back runs")
     launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
                 for k in launches}
     if args.profile:

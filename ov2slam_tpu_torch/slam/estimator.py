@@ -8,17 +8,18 @@ padded ``BAProblem`` from the host map store, run the Schur-LM (or dogleg)
 solver on the device, write results back, sweep outlier observations, and
 cull redundant keyframes. In the pipelined mode the solve is dispatched at
 one keyframe (``begin_local_ba``) and written back frames later
-(``finalize_local_ba``), its results fetched in between. The local BA
-always has one fixed shape (F, L, O) = (24, 2048, 12288); windows beyond it
-are truncated by covisibility score and counted in ``n_truncations``.
+(``finalize_local_ba``), its results fetched in between. The local BA's
+caps are (F, L, O) = (24, 2048, 12288); windows beyond them are truncated
+by covisibility score and counted in ``n_truncations``.
 
 Span BA (the loose BA after a loop closure), full BA (``do_full_ba``, at
 ``write_results``) and the structure-only refinement of merged landmarks
-build their problems through the same window builder with other caps, and
-pad them to the live counts of keyframes, landmarks and observations: the
-padding adds exact zeros, and eager PyTorch has no compiles to bound (the
-JAX package pads to coarse buckets to bound XLA recompiles). Span and full
-BA run the matrix-free Schur-PCG solver (``opt/ba_global.py``).
+build their problems through the same window builder with other caps.
+Every problem has the live counts of keyframes, landmarks and observations
+(the caps only truncate): the JAX package pads to fixed shapes and coarse
+buckets to bound XLA recompiles, where padding adds exact zeros, and eager
+PyTorch has no compiles to bound. Span and full BA run the matrix-free
+Schur-PCG solver (``opt/ba_global.py``).
 """
 
 from __future__ import annotations
@@ -76,9 +77,8 @@ class Estimator:
         """Window selection mirroring optimizer.cpp:128-267: KFs with
         covisibility score >= nmin_covscore are optimized, other observers
         of window landmarks enter as constants; >= 1 constant KF (stereo)
-        fixes the gauge. At the default caps the problem is padded to
-        them (the local BA's one shape); at other caps to the live counts
-        (capped by them)."""
+        fixes the gauge. The problem has the live counts, truncated at the
+        caps."""
         p = self.params
         covis = m.covis.get(new_kfid, {})
         ranked = sorted(covis.items(), key=lambda kv: -kv[1])
@@ -121,16 +121,11 @@ class Estimator:
         while len(const_kfs) < nmincst and len(opt_kfs) > 1:
             const_kfs.append(opt_kfs.pop())
 
-        fixed = (max_kfs, max_lms, max_obs) == (BA_MAX_KFS, BA_MAX_LMS,
-                                                 BA_MAX_OBS)
-        kf_list = opt_kfs + const_kfs
-        F = max_kfs if fixed else min(len(kf_list), max_kfs)
-        L = max_lms if fixed else len(lm_set)
-        kf_list = kf_list[:F]
+        kf_list = (opt_kfs + const_kfs)[:max_kfs]
+        F, L = len(kf_list), len(lm_set)
         if all(k in opt_set for k in kf_list) and len(kf_list) > 1:
             opt_set.discard(kf_list[-1])
         kf_slot = {kfid: i for i, kfid in enumerate(kf_list)}
-        lm_set = lm_set[:L]
 
         R = np.tile(np.eye(3, dtype=np.float32), (F, 1, 1))
         t = np.zeros((F, 3), np.float32)
@@ -194,7 +189,7 @@ class Estimator:
                 mslot.append(slots[sel])
                 mright.append(np.full(sel.sum(), right))
         okf = np.concatenate(okf)
-        O = max_obs if fixed else min(len(okf), max_obs)
+        O = min(len(okf), max_obs)
         if len(okf) > O:
             self.n_truncations += 1
             _log.warning("BA window at kf=%d truncated: %d observations > "

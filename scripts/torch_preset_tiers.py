@@ -3,7 +3,6 @@ JAX package, and print one JSON line per tier.
 
     python3 scripts/torch_preset_tiers.py [--backend torch|jax]
         [--device cuda|cpu] [--frames 120] [--tiers NAME,NAME] [--out FILE]
-        [--lc-frames 1000]
 
 Tiers (``TIERS``): each is a shipped preset file,
 ``parameters_files/<tier>/euroc/euroc_<mode>.yaml``, with only the camera
@@ -15,8 +14,8 @@ loop closer off, the latter also sets ``bdo_stereo_rect``. They run over the
 first ``--frames`` frames of ``render_hard_sequence(n_frames=1000)`` (a
 prefix: the trajectory's spacing depends on n_frames), rendered by
 ``tests/hard_synthetic_np.py`` and quantized to uint8, then ``flush()``.
-``accurate_stereo`` (the loop closer on, as shipped) runs ``--lc-frames``
-frames (all 1000: the trajectory revisits its start after ~926), with the
+``accurate_stereo`` (the loop closer on, as shipped) runs all ``HARD_N``
+(1000) frames (the trajectory revisits its start after ~926), with the
 loop detector scaled to the sequence's ~50 keyframes as
 ``scripts/hard_bench.py`` scales it (``LC_DETECTOR``). ``kf2f`` is
 ``chip_smoke.py``'s 60-frame synthetic stereo slice
@@ -29,7 +28,10 @@ closer on, local-map matching off, the short-world detector settings):
 (``force_realtime``), ``oab_mono``, and ``oab_kidnap`` (30 frames mapped, 6
 blank, then frame 6 again, stereo). ``--backend jax`` supplies the name the
 JAX package's structure-only BA lacks (``ov2slam_tpu/opt/ba.py:536``, R1)
-before it runs.
+before it runs. The port runs every loop-closing tier under PyTorch's
+deterministic algorithms (``deterministic``): the scatter-adds of the BA,
+the pose graph and the PCG then sum in a fixed order on the card, so that
+a run repeats as long as the span BA's wall-clock budget does not cut it.
 
 Each line: the tier, its ATE (m; Sim(3)-aligned for mono, SE(3) for
 stereo) over the logged per-frame poses, frames, keyframes, 3D landmarks,
@@ -37,7 +39,9 @@ the deepest in-flight FIFO, wall seconds and frames per second after the
 first frame (host clock, flush included); with the loop closer also the
 loop events, the ATE of the relaxed full trajectory
 (``ov2slam_full_traj_wlc_opt.txt``) and the seconds of ``write_results``;
-the kidnap run the relocalization error and the tracking-chain generation. ``--backend jax`` imports the
+the kidnap run the relocalization error and the tracking-chain generation;
+a loop tier of the port also the operations that have no deterministic
+version, where one ran. ``--backend jax`` imports the
 JAX package only then and runs it on the CPU (it gives the reference ATEs
 that ``chip_smoke.py`` records); the default runs the port on the card.
 """
@@ -45,11 +49,13 @@ that ``chip_smoke.py`` records); the default runs the port on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -103,26 +109,13 @@ def tier_dict(name: str) -> dict:
     return d
 
 
-_WORLD = {}
-
-
 def _hard_chunk(idx):
     """Frames `idx` of render_hard_sequence(n_frames=HARD_N), as uint8
     pairs and gt positions (one spawned worker's share)."""
     import hard_synthetic_np as hs
-    if not _WORLD:
-        # render_hard_sequence's world, trajectory and right-camera offset
-        _WORLD.update(world=hs.RoomWorld(seed=0),
-                      poses=hs.loop_trajectory(HARD_N, laps=1.08))
-    world, poses = _WORLD["world"], _WORLD["poses"]
-    T_lr = np.eye(4)
-    T_lr[0, 3] = hs.CAM_EUROC.BASELINE
-    out = []
-    for i in idx:
-        il = hs.exposure(world.render(poses[i], DIST), i)
-        ir = hs.exposure(world.render(poses[i] @ T_lr, DIST), i)
-        out.append((il.astype(np.uint8), ir.astype(np.uint8), poses[i][:3, 3]))
-    return out
+    return [(il.astype(np.uint8), ir.astype(np.uint8), T_wc[:3, 3])
+            for il, ir, _, T_wc in hs.render_hard_sequence(
+                HARD_N, dist=DIST, frames=idx)]
 
 
 def hard_frames(n: int, workers: int = None):
@@ -295,39 +288,69 @@ def make_system(backend: str, d: dict, device: str, detector=None):
     return slam
 
 
+@contextlib.contextmanager
+def deterministic(ops: set):
+    """PyTorch's deterministic algorithms for the block (the port's loop
+    tiers): ``index_add_``, ``scatter_add_`` and indexed writes on the card
+    sum or write in a fixed order. An operation without a deterministic
+    version warns instead of raising; the name its warning gives is added
+    to `ops`. cuBLAS keeps its order only when ``CUBLAS_WORKSPACE_CONFIG``
+    was set before the card was first used (``main`` sets it)."""
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for w in caught:
+        msg = str(w.message)
+        if "deterministic" in msg:
+            ops.add(msg.split(" does not have")[0].split(" is not")[0][:120])
+        else:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", choices=("torch", "jax"), default="torch")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--frames", type=int, default=120)
-    ap.add_argument("--lc-frames", type=int, default=HARD_N)
     ap.add_argument("--tiers", default=",".join(list(TIERS) + list(OAB)))
     ap.add_argument("--out", type=Path, help="also append the lines here")
     args = ap.parse_args()
     names = args.tiers.split(",")
-    hard = (hard_frames(args.frames)
-            if any(TIERS.get(n) and n != "accurate_stereo" for n in names) else None)
+    n_hard = max([HARD_N if n == "accurate_stereo" else args.frames
+                  for n in names if TIERS.get(n)], default=0)
+    hard = hard_frames(n_hard) if n_hard else None
     sync = None
     if args.backend == "torch":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         import torch
         torch.set_num_threads(min(torch.get_num_threads(), 8))
         if args.device is None or str(args.device).startswith("cuda"):
             sync = torch.cuda.synchronize
     oab = oab_frames() if any(n in OAB for n in names) else None
     for name in names:
-        if name in OAB:
-            slam = make_system(args.backend, oab_dict(name), args.device)
-            row = dict(tier=name, backend=args.backend,
-                       **run_oab(slam, name, oab, sync=sync))
-        else:
-            d = tier_dict(name)
-            frames = (hard_frames(args.lc_frames) if name == "accurate_stereo"
-                      else hard if TIERS[name] else kf2f_frames())
-            slam = make_system(args.backend, d, args.device,
-                               LC_DETECTOR if d.get("buse_loop_closer") else None)
-            row = dict(tier=name, backend=args.backend,
-                       **run_tier(slam, frames, bool(d.get("mono")), sync=sync))
+        d = oab_dict(name) if name in OAB else tier_dict(name)
+        ops = set()
+        with (deterministic(ops) if args.backend == "torch"
+              and d.get("buse_loop_closer") else contextlib.nullcontext()):
+            if name in OAB:
+                slam = make_system(args.backend, d, args.device)
+                row = run_oab(slam, name, oab, sync=sync)
+            else:
+                n = HARD_N if name == "accurate_stereo" else args.frames
+                frames = (tuple(x[:n] for x in hard) if TIERS[name]
+                          else kf2f_frames())
+                slam = make_system(args.backend, d, args.device,
+                                   LC_DETECTOR if d.get("buse_loop_closer") else None)
+                row = run_tier(slam, frames, bool(d.get("mono")), sync=sync)
+        row = dict(tier=name, backend=args.backend, **row)
+        if ops:
+            row["nondeterministic_ops"] = sorted(ops)
         line = json.dumps(row)
         print(line, flush=True)
         if args.out:

@@ -247,12 +247,14 @@ def exposure(img: np.ndarray, i: int) -> np.ndarray:
 
 def render_hard_sequence(n_frames=1000, seed=0, dist=(-0.28, 0.07),
                          with_exposure=True, cam: CamSpec = CAM_EUROC,
-                         traj: str = "loop"):
+                         traj: str = "loop", frames=None):
     """Generator of (img_l, img_r, t, T_wc_gt): distorted, exposure-drifted
     stereo frames around the room loop. Yields lazily — 1000+ frames at
     752x480 would be ~2.9 GB if materialized. The lap count scales with
     length (1000 frames ~ 1 lap), so longer sequences revisit repeatedly.
-    traj="fig8" switches to the multi-loop figure-8 topology."""
+    traj="fig8" switches to the multi-loop figure-8 topology. `frames`
+    (indices into the n_frames) renders only those frames, in that order,
+    so that worker processes can split one sequence."""
     world = RoomWorld(seed=seed)
     if traj == "fig8":
         poses = fig8_trajectory(n_frames)
@@ -261,7 +263,8 @@ def render_hard_sequence(n_frames=1000, seed=0, dist=(-0.28, 0.07),
     T_rl = np.eye(4)
     T_rl[0, 3] = -cam.BASELINE
     T_lr = np.linalg.inv(T_rl)
-    for i, T_wc in enumerate(poses):
+    for i in (range(n_frames) if frames is None else frames):
+        T_wc = poses[i]
         il = world.render(T_wc, dist, cam)
         ir = world.render(T_wc @ T_lr, dist, cam)
         if with_exposure:

@@ -16,9 +16,10 @@ import synthetic_np as syn
 DETECTOR = dict(p_wait=10, min_consecutive=2, min_score=3.0)
 
 
+@functools.lru_cache(maxsize=2)
 def render_out_and_back(n_half=50, step=0.08, seed=0):
     """(left frames, right frames, camera-to-world poses) of 2 * n_half
-    frames."""
+    frames, as tuples (rendered once per process and shared, ~16 s)."""
     tex, tex2 = _textures(seed)
     poses = []
     for i in range(n_half):
@@ -38,7 +39,7 @@ def render_out_and_back(n_half=50, step=0.08, seed=0):
                                      plane2_z=1.7, plane2_hw=0.6))
         out_r.append(syn.render_view(tex, tex2, T_rl @ T_cw, plane_z=2.5,
                                      plane2_z=1.7, plane2_hw=0.6))
-    return out_l, out_r, poses
+    return tuple(out_l), tuple(out_r), tuple(poses)
 
 
 @functools.lru_cache(maxsize=2)

@@ -19,7 +19,6 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import ov2slam_tpu.core.smallalg as jsmallalg
 import ov2slam_tpu.opt.ba as jba
 from ov2slam_tpu.config import SlamParams as JParams
 from ov2slam_tpu.core.lie import SE3 as JSE3
@@ -34,18 +33,17 @@ from ov2slam_tpu_torch.slam.estimator import Estimator
 
 from test_map_merge import BASE, CX, CY, FX, FY, make_map
 from test_opt import _pose_err, make_ba_problem
-from torch_parity import n
+from torch_parity import n, r1_patched
 
 POSE_TOL, LM_TOL, COST_RTOL = 1e-4, 5e-3, 1e-4
 
 
 @pytest.fixture
-def r1_patch(monkeypatch):
-    """Supply the name the JAX structure-only solver misses; afterwards drop
-    its compiled versions, so no later test runs it patched."""
-    monkeypatch.setattr(jba, "smallalg", jsmallalg, raising=False)
-    yield
-    jba.solve_structure_only.clear_cache()
+def r1_patch():
+    """Supply the name the JAX structure-only solver misses, for one test
+    (``torch_parity.r1_patched``)."""
+    with r1_patched():
+        yield
 
 
 def _corrupt(prob, every=7):
@@ -141,6 +139,25 @@ def _same_maps(mt, mj, ids):
     np.testing.assert_allclose(mt.lm_lam[ids], mj.lm_lam[ids], rtol=1e-3)
     for k, rec in mj.keyframes.items():
         np.testing.assert_allclose(mt.keyframes[k].T_cw, rec.T_cw, atol=POSE_TOL)
+
+
+def test_r1_patch_ends_with_its_block():
+    """The R1 patch does not outlive its block: inside it the JAX package's
+    estimator runs its structure-only BA; after it the same call raises
+    NameError, as the shipped package does, although the solver was traced
+    patched. So the JAX package's own tests of it fail in any test order."""
+    mj, ids, _ = _perturbed_map(3)
+    ej, _ = _estimators({"stereo": 1, "nmin_covscore": 1, "buse_inv_depth": 0})
+
+    def call():
+        return ej.local_ba_with_caps(mj, 3, 8, 256, 4096, max_iters=4,
+                                     structure_only=True,
+                                     only_lmids={int(x) for x in ids[:10]})
+    with r1_patched():
+        assert call().ran
+    assert not hasattr(jba, "smallalg")
+    with pytest.raises(NameError):
+        call()
 
 
 def test_structure_only_of_given_landmarks_matches_jax(r1_patch):

@@ -42,3 +42,18 @@ def test_same_rig_and_trajectories():
     for f in ("loop_trajectory", "fig8_trajectory"):
         for Ta, Tb in zip(getattr(hs, f)(50), getattr(hsn, f)(50)):
             np.testing.assert_array_equal(Ta, Tb)
+
+
+def test_frame_selection_renders_the_same_frames():
+    """render_hard_sequence(frames=...) (how the preset tiers' worker
+    processes split the sequence) gives exactly those frames of the whole
+    sequence, in the order asked."""
+    full = hsn.render_hard_sequence(n_frames=1000)
+    want = {i: f for i, f in zip(range(10), full)}
+    got = list(hsn.render_hard_sequence(n_frames=1000, frames=[9, 1]))
+    assert len(got) == 2
+    for i, g in zip((9, 1), got):
+        for x, y in zip(want[i][:2], g[:2]):
+            np.testing.assert_array_equal(x, y)
+        assert want[i][2] == g[2]
+        np.testing.assert_array_equal(want[i][3], g[3])

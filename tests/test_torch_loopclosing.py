@@ -24,8 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import ov2slam_tpu.core.smallalg as jsmallalg
-import ov2slam_tpu.opt.ba as jba
 from ov2slam_tpu.config import SlamParams as JParams
 from ov2slam_tpu.slam.manager import SlamSystem as JSlam
 from ov2slam_tpu_torch import interop
@@ -34,7 +32,7 @@ from ov2slam_tpu_torch.slam.estimator import Estimator
 from ov2slam_tpu_torch.slam.loopcloser import LoopCloser
 
 import loop_synthetic_np as lsn
-import torch_parity  # noqa: F401  (caps torch threads)
+from torch_parity import r1_patched  # (also caps torch threads)
 
 POSE_TOL, LM_TOL = 1e-3, 5e-3
 
@@ -50,14 +48,10 @@ def jax_draw(valid, n_hyps, size, seed):
 
 @pytest.fixture(scope="module")
 def r1():
-    """Supply the name the JAX structure-only solver misses (R1); after the
-    module, drop the solver's compiled versions too, so that no later test
-    in this process runs the reference's solver patched."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jba, "smallalg", jsmallalg, raising=False)
-    yield
-    mp.undo()
-    jba.solve_structure_only.clear_cache()
+    """Supply the name the JAX structure-only solver misses (R1), for the
+    module (``torch_parity.r1_patched``)."""
+    with r1_patched():
+        yield
 
 
 def port_closer(jslam, d):
