@@ -46,7 +46,8 @@ Phases (any failure raises; nothing falls back to the CPU):
    distorted EuRoC rig of ``tests/hard_synthetic.py``, run as shipped
    (``force_realtime``: pipelined frames, staged keyframe commits, deferred
    BA; FAST and the P3P start in the ``fast`` tiers) over the first
-   ``TIER_FRAMES`` frames of ``render_hard_sequence(n_frames=1000)``, then
+   ``TIER_FRAMES`` frames of ``render_hard_sequence(n_frames=1000)`` under
+   PyTorch's deterministic algorithms (so that each ATE repeats), then
    flushed: one finite pose per frame, the in-flight FIFO at
    ``pipeline_depth``, staged commits and deferred BA writebacks landing
    (stereo), exactly one ``klt_track`` launch per tracking call beside one
@@ -81,10 +82,27 @@ Phases (any failure raises; nothing falls back to the CPU):
    runs under PyTorch's deterministic algorithms
    (``torch_preset_tiers.deterministic``; ``CUBLAS_WORKSPACE_CONFIG`` is
    set before the card is first used), so that its ATE repeats from run to
-   run on the card. Phases 1-10 and ``accurate_stereo`` run alone, one
-   after the other, so their times stay comparable; the four out-and-back
-   runs come last, as processes of their own (``--loop-run NAME``) started
-   together, so their host times are not clean timings.
+   run on the card. Phases 1-10, ``accurate_stereo`` and phase 12 run
+   alone, one after the other, so their times stay comparable; the four
+   out-and-back runs come last, as processes of their own (``--loop-run
+   NAME``) started together, so their host times are not clean timings;
+12. cli: ``python -m ov2slam_tpu_torch.run``'s ``main``, called in this
+   process with no ``--device`` (the card), over the first ``CLI_FRAMES``
+   frames of the hard sequence written as an EuRoC ASL tree
+   (``scripts/torch_cli_run.py``: PNG rows filtered with every type in
+   turn, ns stamps at 20 Hz, the right camera 2 ms later, ``data.csv``)
+   with the shipped ``accurate_stereo_nolc`` preset as a YAML file: the
+   port's PNG decoder gives the written pixels (host ms per image); run
+   (a) as shipped (``force_realtime``: frames dropped by the wall clock)
+   accounts for every frame (processed + dropped), a finite trajectory row
+   per processed frame; run (b) with ``force_realtime`` 0, twice: a row per
+   frame, byte-identical trajectory files (the CLI runs under PyTorch's
+   deterministic algorithms) and the ATE within 1.5x + 5 mm of the JAX
+   package's CLI on the same directory on the CPU (``REF_CLI_ATE``); every
+   run has ``log_timings`` on and a profiler table with ``CLI_LABELS``, and
+   once it took a second keyframe the local BA's (``CLI_BA_LABELS``);
+   every run launches ``klt_track`` exactly once per tracking call besides
+   one per keyframe stereo match, and ``lk_iterate`` never.
 
 The hard sequence is rendered once, at the start, by worker processes.
 
@@ -137,6 +155,7 @@ from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
 sys.path.insert(0, str(ROOT / "scripts"))
 import klt_inputs  # noqa: E402
 import synthetic_np as syn  # noqa: E402
+import torch_cli_run as cli  # noqa: E402
 import torch_preset_tiers as tiers  # noqa: E402
 
 WS, WIN, EPS, MARGIN = 20, 9, 0.01, 4.0
@@ -186,6 +205,19 @@ REF_ATE = {"fast_stereo": 0.011895194593247387,
            "accurate_stereo": REF_LC_ATE,
            "accurate_stereo_wlc_opt": REF_LC_WLC_OPT}
 ATE_SLACK, ATE_ABS = 1.5, 0.005
+# the cli phase: the first CLI_FRAMES frames of the hard sequence as an
+# EuRoC tree, accurate_stereo_nolc as a YAML preset
+# (scripts/torch_cli_run.py); the ATE of the JAX package's CLI over it on
+# the CPU with force_realtime 0 (`JAX_PLATFORMS=cpu python3
+# scripts/torch_cli_run.py --backend jax`); the profiler labels every
+# table must hold, and those of the local BA (deferred when pipelined) that
+# a run's table must hold once it took a second keyframe: run (a), whose
+# frames drop by the wall clock, can lose track after an early drop and
+# take no other
+CLI_FRAMES = cli.CLI_FRAMES
+REF_CLI_ATE = 0.006771421627648784
+CLI_LABELS = ("0.Full-Front_End", "2.KF_DeviceStep", "2.KF_Registry_fetch")
+CLI_BA_LABELS = {0: ("1.BA_localBA",), 1: ("1.BA_localBA", "1.BA_begin")}
 # the loop phase: the out-and-back runs of scripts/torch_preset_tiers.py and
 # their gates (tests/test_loopclosing.py's)
 LOOP_RUNS = ("oab_stereo", "oab_stereo_rt", "oab_mono", "oab_kidnap")
@@ -910,7 +942,12 @@ def counting_stereo_kf_steps(calls: list):
 
 def phase_tiers(tag: str, dev, names, hard):
     """Each tier of `names` through SlamSystem on the card, as
-    scripts/torch_preset_tiers.py runs it, with this smoke's checks.
+    scripts/torch_preset_tiers.py runs it, with this smoke's checks, under
+    PyTorch's deterministic algorithms, as the CLI runs (without them the
+    local BA's scatter-adds sum in another order in every run, and a tier's
+    ATE moves from run to run: on an NVIDIA H100 80GB HBM3 at 700 W,
+    ``accurate_stereo_rect`` read 0.0106-0.0120 m in seven of eight runs
+    and 0.0376 m in the eighth, which took one keyframe more).
     Returns the launches of both kernels over the phase."""
     total = {"klt_track": 0, "lk_iterate": 0}
     rows = {}
@@ -928,7 +965,8 @@ def phase_tiers(tag: str, dev, names, hard):
 
         klt.LAUNCHES = lk.LAUNCHES = 0
         gate = []
-        with counting_stereo_kf_steps(stereo_kf), recording_essential_ransac(gate):
+        with tiers.deterministic(set()), counting_stereo_kf_steps(stereo_kf), \
+                recording_essential_ransac(gate):
             row = tiers.run_tier(slam, frames, mono, call=call,
                                  sync=torch.cuda.synchronize)
         total["klt_track"] += klt.LAUNCHES
@@ -1140,6 +1178,108 @@ def loop_run(dev, name: str, frames, total: dict):
     else:
         assert row["ate_wlc_opt"] < OAB_ATE, row
         assert row["ate_wlc_opt"] <= 1.2 * row["ate"] + 1e-3, row
+
+
+@contextlib.contextmanager
+def counting_tracking_calls(per_call: list, stereo_kf: list):
+    """For every SlamSystem.process_stereo call, append to `per_call` the
+    klt_track launches it made besides its keyframe stereo matches (those
+    recorded in `stereo_kf` by counting_stereo_kf_steps)."""
+    real = SlamSystem.process_stereo
+
+    def rec(self, *a, **k):
+        k0, s0 = klt.LAUNCHES, len(stereo_kf)
+        out = real(self, *a, **k)
+        per_call.append(klt.LAUNCHES - k0 - (len(stereo_kf) - s0))
+        return out
+    SlamSystem.process_stereo = rec
+    try:
+        yield
+    finally:
+        SlamSystem.process_stereo = real
+
+
+def phase_cli(total: dict, frames):
+    """12. cli: the port's command-line entry point, in this process (so
+    the launch counters are read), over the first CLI_FRAMES frames of the
+    hard sequence written as an EuRoC ASL tree, the shipped
+    accurate_stereo_nolc preset as YAML: (a) as shipped (force_realtime,
+    frames dropped by the wall clock), (b) with force_realtime 0, twice;
+    log_timings on in all three."""
+    from ov2slam_tpu_torch import run
+    from ov2slam_tpu_torch.io import datasets
+    from ov2slam_tpu_torch.io.profiler import Profiler
+    L, R, gt = (x[:CLI_FRAMES] for x in frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        stamps = cli.write_dataset(str(root / "seq"), L, R)
+        t_write = time.perf_counter() - t0
+        pngs = sorted((root / "seq" / "mav0" / "cam0" / "data").glob("*.png"))
+        t0 = time.perf_counter()
+        datasets.read_png_gray(str(pngs[0]))    # builds the C++ unfilter
+        log(f"[cli] png_unfilter.cpp built (g++) and first image read in "
+            f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        decoded = [datasets.read_png_gray(str(f)) for f in pngs]
+        decode_ms = 1000 * (time.perf_counter() - t0) / len(pngs)
+        assert all(np.array_equal(d, l.astype(np.float32))
+                   for d, l in zip(decoded, L)), "a PNG decoded wrong"
+        log(f"[cli] {CLI_FRAMES} stereo pairs written as an EuRoC tree in "
+            f"{t_write:.1f} s; decode {decode_ms:.3f} ms per 752x480 grey "
+            f"image (host, every row filter type), pixels equal")
+        trajs = {}
+        for name, realtime, timings in (("a", 1, 1), ("b1", 0, 1), ("b2", 0, 1)):
+            params = str(root / f"{name}.yaml")
+            cli.write_params(params, realtime, timings)
+            out = root / f"out_{name}"
+            Profiler.instance().reset()
+            per_call, stereo_kf = [], []
+            klt.LAUNCHES = lk.LAUNCHES = 0
+            with counting_stereo_kf_steps(stereo_kf), \
+                    counting_tracking_calls(per_call, stereo_kf):
+                res = run.main([params, str(root / "seq"), "--out", str(out)])
+            total["klt_track"] += klt.LAUNCHES
+            total["lk_iterate"] += lk.LAUNCHES
+            rows, ate = cli.trajectory_ate(str(out / "ov2slam_traj.txt"), stamps, gt)
+            traj = np.loadtxt(out / "ov2slam_traj.txt", ndmin=2)
+            labels = sorted(Profiler.instance().timers)
+            log(f"[cli] run ({name}), force_realtime {realtime}: processed "
+                f"{res['frames']}, dropped {res['dropped']}, {res['keyframes']} "
+                f"keyframes, {res['frames'] / res['seconds']:.2f} fps, {rows} rows, ATE "
+                f"{ate:.5f} m ("
+                + ("not gated: the frames processed depend on the clock" if realtime
+                   else f"JAX CLI on the CPU {REF_CLI_ATE:.5f}, bound "
+                   f"{ATE_SLACK * REF_CLI_ATE + ATE_ABS:.5f}")
+                + "); "
+                f"klt_track {klt.LAUNCHES} ({len(stereo_kf)} in keyframe "
+                f"stereo matches, per tracking call {sorted(set(per_call[1:]))}),"
+                f" lk_iterate {lk.LAUNCHES}; profiler labels {labels}")
+            assert res["frames"] + res["dropped"] == CLI_FRAMES, res
+            assert traj.shape == (res["frames"], 8) and np.isfinite(traj).all(), (
+                f"({name}): {traj.shape} rows for {res['frames']} frames")
+            assert len(per_call) == res["frames"], (len(per_call), res)
+            assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
+                f"({name}): tracking calls must launch klt_track once: {per_call}")
+            assert klt.LAUNCHES == res["frames"] - 1 + len(stereo_kf)
+            assert lk.LAUNCHES == 0, f"({name}): the per-chunk LK path ran"
+            missing = (set(CLI_LABELS) | set(CLI_BA_LABELS[realtime] if
+                                             res["keyframes"] > 1 else ())
+                       ) - set(labels)
+            assert not missing, f"({name}): no {sorted(missing)} in the table"
+            if name == "a":
+                idx = np.rint((traj[:, 0] - stamps[0] * 1e-9) / 0.05).astype(int)
+                log(f"[cli] run (a) processed frames {idx.tolist()}")
+            else:
+                assert res["dropped"] == 0
+                assert ate <= ATE_SLACK * REF_CLI_ATE + ATE_ABS, ate
+                trajs[name] = {f.name: f.read_bytes()
+                               for f in sorted(out.glob("*.txt"))}
+        assert trajs["b1"] == trajs["b2"], (
+            "(b): two runs over the same frames wrote different files: "
+            + str([f for f in trajs["b1"] if trajs["b1"][f] != trajs["b2"].get(f)]))
+        log(f"[cli] (b) twice: {len(trajs['b1'])} trajectory files, "
+            "byte-identical")
 
 
 def start_loop_runs():
@@ -1355,10 +1495,13 @@ def main() -> int:
     loop = {"klt_track": 0, "lk_iterate": 0}
     phase_lc_tier(dev, loop, hard_all)
     phase_done("loop tier")
+    cli_total = {"klt_track": 0, "lk_iterate": 0}
+    phase_cli(cli_total, hard)
+    phase_done("cli")
     finish_loop_runs(start_loop_runs(), loop)
     phase_done("out-and-back runs")
     launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
-                for k in launches}
+                + cli_total[k] for k in launches}
     if args.profile:
         phase_compare(dev, frames)
         phase_profile(dev, frames, mono_frames, args.profile, hard)

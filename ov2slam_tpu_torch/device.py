@@ -14,6 +14,8 @@ the CPU unasked.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -25,6 +27,25 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms for the block: ``index_add_``,
+    ``scatter_add_`` and indexed writes, which the BA, the pose graph and
+    the PCG sum with, then sum in a fixed order on the card, so a run
+    repeats. An operation without a deterministic version warns instead of
+    raising. cuBLAS keeps one order only when ``CUBLAS_WORKSPACE_CONFIG``
+    is set before it is first used in the process; this sets it unless the
+    caller did. The flags the caller had are restored on the way out."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

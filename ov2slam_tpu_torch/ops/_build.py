@@ -1,12 +1,14 @@
-"""Build the package's CUDA sources at first use.
+"""Build the package's native sources at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. The
 library lands in ``ov2slam_tpu_torch/build/`` under a name keyed on the hash
 of its source, the ``csrc`` headers it includes, and the flags, so an edited
 source or header rebuilds and an unchanged one loads at once. ``build``
-starts one ``nvcc`` per source, all at once. Only sources in the repository
-are used.
+starts one ``nvcc`` per source, all at once. The host libraries
+(``csrc/<name>.cpp``: the place index, the PNG unfilter) are compiled the
+same way by ``g++`` (``build_cxx``), on any machine. A failed build raises.
+Only sources in the repository are used.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
@@ -99,3 +103,30 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)[1]))
     return _LIBS[name]
+
+
+def cxx_library_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cpp, at its current source and
+    flags, lives."""
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_cxx(name: str) -> Path:
+    """Compile csrc/<name>.cpp with g++ (``$CXX``) unless its library
+    exists; returns the library's path. Raises when the compiler fails."""
+    lib = cxx_library_path(name)
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cxx = os.environ.get("CXX", "g++")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {name}.cpp (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

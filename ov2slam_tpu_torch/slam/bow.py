@@ -18,50 +18,25 @@ for (``force_python=True``), never in place of a failed build.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ov2slam_tpu_torch.ops._build import BUILD_DIR, CSRC
+from ov2slam_tpu_torch.ops import _build
 
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 _LIB: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> str:
     """Where the index library of the current source and flags lives."""
-    src = CSRC / "bow_index.cpp"
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + b"\0" + src.read_bytes())
-    return str(BUILD_DIR / f"libbow_index_{h.hexdigest()[:16]}.so")
-
-
-def build() -> str:
-    """Compile csrc/bow_index.cpp unless its library exists; returns its
-    path. Raises when the compiler fails."""
-    lib = library_path()
-    if os.path.exists(lib):
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cxx = os.environ.get("CXX", "g++")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
-                           str(CSRC / "bow_index.cpp")],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cxx} failed on bow_index.cpp (exit "
-                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return str(_build.cxx_library_path("bow_index"))
 
 
 def _get_lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(str(_build.build_cxx("bow_index")))
         lib.bow_create.restype = ctypes.c_void_p
         lib.bow_destroy.argtypes = [ctypes.c_void_p]
         lib.bow_num_images.argtypes = [ctypes.c_void_p]

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 from ov2slam_tpu_torch.core.camera import Camera
 from ov2slam_tpu_torch.core.lie import SE3
 from ov2slam_tpu_torch.device import resolve_device
+from ov2slam_tpu_torch.io.profiler import Profiler
 from ov2slam_tpu_torch.ops import describe as desc_mod
 from ov2slam_tpu_torch.ops import mvg
 from ov2slam_tpu_torch.opt import pnp as pnp_mod
@@ -285,7 +286,7 @@ class LoopCloser:
             if src >= 0 and src != lm:
                 mdst.append(lm)
                 msrc.append(src)
-        with record_function("2.LC_MergeBookkeeping"):
+        with Profiler.instance().scope("2.LC_MergeBookkeeping"):
             n_merged = m.merge_landmarks_batch(mdst, msrc)
             m.update_covisibility(kfid)
 

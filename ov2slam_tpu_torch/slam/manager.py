@@ -37,7 +37,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ov2slam_tpu_torch import device as device_mod
 from ov2slam_tpu_torch.config import SlamParams
@@ -45,6 +44,7 @@ from ov2slam_tpu_torch.core import camera as cam_mod
 from ov2slam_tpu_torch.core.camera import Camera
 from ov2slam_tpu_torch.core.lie import SE3
 from ov2slam_tpu_torch.device import Fetch
+from ov2slam_tpu_torch.io.profiler import Profiler
 from ov2slam_tpu_torch.io.trajectories import TrajectoryLogger
 from ov2slam_tpu_torch.ops import describe as desc_mod
 from ov2slam_tpu_torch.ops import detect as det_mod
@@ -125,6 +125,10 @@ class SlamSystem:
             warnings.warn("use_brief=0 is not supported: only BRIEF-256 is "
                           "built; the flag is ignored", stacklevel=2)
         self.kp_cap = p.kp_cap
+        # process-wide, as the reference's (not reset here: the timers of
+        # every system in the process add up until the caller resets them)
+        self.prof = Profiler.instance()
+        self.prof.enabled = p.log_timings
         self.logger = TrajectoryLogger()
         # pipelined-mode stages that landed, over the system's life:
         # "kf_commit_lag" / "lmm_commit_lag" (a staged commit reached its
@@ -329,7 +333,7 @@ class SlamSystem:
             imr = self._rectify(imr, 1)
         self._last_imr = imr
         img = self._to_device_u8(iml)
-        with record_function("0.Full-Front_End"):
+        with self.prof.scope("0.Full-Front_End"):
             if self.fe_state is None:
                 self.fe_state = self._init_fe_state(img)
                 self._initialize_stereo(imr, time)
@@ -433,7 +437,7 @@ class SlamSystem:
                                  force_kf=True)
             return
         if need_kf or force_kf:
-            with record_function("1.KF_Processing"):
+            with self.prof.scope("1.KF_Processing"):
                 self._create_keyframe(imr, time)
         else:
             self.frames_since_kf += 1
@@ -557,7 +561,7 @@ class SlamSystem:
         if self.rect_maps is not None:        # bdo_undist
             im = self._rectify(im, 0)
         img = self._to_device_u8(im)
-        with record_function("0.Full-Front_End"):
+        with self.prof.scope("0.Full-Front_End"):
             if self.fe_state is None:
                 self.fe_state = self._init_fe_state(img)
                 self._create_keyframe(None, time, run_ba=False, stereo=False)
@@ -622,7 +626,7 @@ class SlamSystem:
                                 force_kf=True)
             return
         if need_kf or force_kf:
-            with record_function("1.KF_Processing"):
+            with self.prof.scope("1.KF_Processing"):
                 self._create_keyframe(None, time, stereo=False, defer=False)
         else:
             self.frames_since_kf += 1
@@ -697,7 +701,7 @@ class SlamSystem:
         kfid = self.map.next_kf_id
         prev_kfid = self.cur_kfid
         self.cur_kfid = kfid
-        with record_function("2.KF_DeviceStep"):
+        with self.prof.scope("2.KF_DeviceStep"):
             n_cells = ((self.cam_l.height // p.nmaxdist)
                        * (self.cam_l.width // p.nmaxdist))
             cand_ids = self.map.alloc_landmarks(n_cells)
@@ -771,19 +775,21 @@ class SlamSystem:
             if self._pending_kf["age"] >= self.KF_COMMIT_LAG:
                 pend, self._pending_kf = self._pending_kf, None
                 self.pipeline_counts["kf_commit_lag"] += 1
-                self._commit_kf(pend)
+                with self.prof.scope("2.KF_Registry"):
+                    self._commit_kf(pend)
             return
         if self._pending_lmm is not None:
             self._pending_lmm["age"] += 1
             if self._pending_lmm["age"] >= self.LMM_LAG:
                 pend, self._pending_lmm = self._pending_lmm, None
                 self.pipeline_counts["lmm_commit_lag"] += 1
-                self._commit_lmm(pend)
+                with self.prof.scope("2.KF_MatchLocalMap"):
+                    self._commit_lmm(pend)
             return
         if self._pending_ba is not None:
             self._ba_age += 1
             if self._ba_age >= self.BA_LAG:
-                with record_function("1.BA_localBA"):
+                with self.prof.scope("1.BA_localBA"):
                     self._finalize_pending_ba()
 
     def _drain_kf_pipeline(self):
@@ -802,85 +808,85 @@ class SlamSystem:
         kfid = pending["kfid"]
         cand_ids = pending["cand_ids"]
         anc = pending["anc"]
-        with record_function("2.KF_Registry"):
+        with self.prof.scope("2.KF_Registry_fetch"):
             (k_px, k_unpx, k_bv, k_lmid, k_valid, k_is3d, k_rpx, k_hr,
              desc_np, desc_ok_np, tri_ok, Xw_np, depth_np, med_depth,
              xdesc_np, xok_np, tt_ok, tt_Xw, tt_da) = pending["fetch"].result()
-            k_lmid = k_lmid.astype(np.int32)
-            desc_np = desc_np.astype(np.uint32)
-            xdesc_np = xdesc_np.astype(np.uint32)
+        k_lmid = k_lmid.astype(np.int32)
+        desc_np = desc_np.astype(np.uint32)
+        xdesc_np = xdesc_np.astype(np.uint32)
 
-            # candidate ids that actually landed in the table
-            used = np.isin(cand_ids, k_lmid[k_valid])
-            self.map.free_landmarks(cand_ids[~used])
-            n_new = int(used.sum())
-            if not p.use_fast:
-                occupied = int(k_valid.sum()) - n_new
-                self.detector_quality = det_mod.adaptive_quality_update(
-                    self.detector_quality, n_new,
-                    max(pending["n_cells"] - occupied, 1))
+        # candidate ids that actually landed in the table
+        used = np.isin(cand_ids, k_lmid[k_valid])
+        self.map.free_landmarks(cand_ids[~used])
+        n_new = int(used.sum())
+        if not p.use_fast:
+            occupied = int(k_valid.sum()) - n_new
+            self.detector_quality = det_mod.adaptive_quality_update(
+                self.detector_quality, n_new,
+                max(pending["n_cells"] - occupied, 1))
 
-            stereo = pending["stereo"]
-            if stereo:
-                # newly triangulated = stereo success on a not-yet-3d landmark
-                sl = np.clip(k_lmid, 0, self.map.cap - 1)
-                was3d = self.map.lm_is3d[sl] & (k_lmid >= 0)
-                newly = tri_ok & k_valid & (k_lmid >= 0) & ~was3d
-                if newly.any():
-                    bearings = k_bv[newly] / np.maximum(k_bv[newly][:, 2:], 1e-9)
-                    self.map.set_positions(
-                        k_lmid[newly], Xw_np[newly], anchor_kf=kfid,
-                        bearings=bearings,
-                        lams=1.0 / np.maximum(depth_np[newly], 1e-6))
-                self.median_depth = float(med_depth)
-
-            # temporal-triangulation commits, per anchor keyframe (in
-            # stereo only for landmarks the stereo step left 2D)
-            anc_bv, anc_first = anc[2], anc[5]
+        stereo = pending["stereo"]
+        if stereo:
+            # newly triangulated = stereo success on a not-yet-3d landmark
             sl = np.clip(k_lmid, 0, self.map.cap - 1)
-            tnew = tt_ok & k_valid & (k_lmid >= 0) & (anc_first >= 0)
-            if stereo:
-                tnew &= ~self.map.lm_is3d[sl]
-            if tnew.any():
-                slots = np.nonzero(tnew)[0]
-                ids = k_lmid[slots]
-                keep = np.zeros(len(slots), bool)
-                anchor_marks = []
-                for akf in np.unique(anc_first[slots]):
-                    arec = self.map.keyframes.get(int(akf))
-                    if arec is None:
-                        continue
-                    asel = anc_first[slots] == akf
-                    aslots = arec.kp_slots_of(ids[asel])
-                    ok2 = aslots >= 0
-                    keep[np.nonzero(asel)[0][ok2]] = True
-                    anchor_marks.append((arec, aslots[ok2]))
-                if keep.any():
-                    ks = slots[keep]
-                    self.map.set_positions(
-                        k_lmid[ks], tt_Xw[ks], anchor_kf=anc_first[ks],
-                        bearings=anc_bv[ks],
-                        lams=1.0 / np.maximum(tt_da[ks], 1e-6))
-                    for arec, aslots in anchor_marks:
-                        arec.is3d[aslots] = True
+            was3d = self.map.lm_is3d[sl] & (k_lmid >= 0)
+            newly = tri_ok & k_valid & (k_lmid >= 0) & ~was3d
+            if newly.any():
+                bearings = k_bv[newly] / np.maximum(k_bv[newly][:, 2:], 1e-9)
+                self.map.set_positions(
+                    k_lmid[newly], Xw_np[newly], anchor_kf=kfid,
+                    bearings=bearings,
+                    lams=1.0 / np.maximum(depth_np[newly], 1e-6))
+            self.median_depth = float(med_depth)
 
-            sl = np.clip(k_lmid, 0, self.map.cap - 1)
-            k_is3d = k_valid & (k_lmid >= 0) & self.map.lm_is3d[sl]
-            rec = KeyframeRecord(
-                kfid=kfid, time=pending["time"], T_cw=pending["T_cw"].copy(),
-                px=k_px, unpx=k_unpx, bv=k_bv, lmid=k_lmid, valid=k_valid,
-                is3d=k_is3d, rpx=k_rpx, has_right=k_hr, desc=desc_np,
-                desc_ok=desc_ok_np, extra_desc=xdesc_np[xok_np][:300])
-            self.map.add_keyframe(rec)
-            dsl = np.nonzero(rec.valid & desc_ok_np & (rec.lmid >= 0))[0]
-            if len(dsl):
-                self.map.add_descriptors(rec.lmid[dsl], desc_np[dsl])
-            self.n_kps_at_kf = int(k_valid.sum())
-            self.n3d_at_kf = int((k_valid & k_is3d).sum())
+        # temporal-triangulation commits, per anchor keyframe (in
+        # stereo only for landmarks the stereo step left 2D)
+        anc_bv, anc_first = anc[2], anc[5]
+        sl = np.clip(k_lmid, 0, self.map.cap - 1)
+        tnew = tt_ok & k_valid & (k_lmid >= 0) & (anc_first >= 0)
+        if stereo:
+            tnew &= ~self.map.lm_is3d[sl]
+        if tnew.any():
+            slots = np.nonzero(tnew)[0]
+            ids = k_lmid[slots]
+            keep = np.zeros(len(slots), bool)
+            anchor_marks = []
+            for akf in np.unique(anc_first[slots]):
+                arec = self.map.keyframes.get(int(akf))
+                if arec is None:
+                    continue
+                asel = anc_first[slots] == akf
+                aslots = arec.kp_slots_of(ids[asel])
+                ok2 = aslots >= 0
+                keep[np.nonzero(asel)[0][ok2]] = True
+                anchor_marks.append((arec, aslots[ok2]))
+            if keep.any():
+                ks = slots[keep]
+                self.map.set_positions(
+                    k_lmid[ks], tt_Xw[ks], anchor_kf=anc_first[ks],
+                    bearings=anc_bv[ks],
+                    lams=1.0 / np.maximum(tt_da[ks], 1e-6))
+                for arec, aslots in anchor_marks:
+                    arec.is3d[aslots] = True
+
+        sl = np.clip(k_lmid, 0, self.map.cap - 1)
+        k_is3d = k_valid & (k_lmid >= 0) & self.map.lm_is3d[sl]
+        rec = KeyframeRecord(
+            kfid=kfid, time=pending["time"], T_cw=pending["T_cw"].copy(),
+            px=k_px, unpx=k_unpx, bv=k_bv, lmid=k_lmid, valid=k_valid,
+            is3d=k_is3d, rpx=k_rpx, has_right=k_hr, desc=desc_np,
+            desc_ok=desc_ok_np, extra_desc=xdesc_np[xok_np][:300])
+        self.map.add_keyframe(rec)
+        dsl = np.nonzero(rec.valid & desc_ok_np & (rec.lmid >= 0))[0]
+        if len(dsl):
+            self.map.add_descriptors(rec.lmid[dsl], desc_np[dsl])
+        self.n_kps_at_kf = int(k_valid.sum())
+        self.n3d_at_kf = int((k_valid & k_is3d).sum())
 
         lmm = None
         if p.bdo_track_localmap and len(self.map.keyframes) >= 3:
-            with record_function("2.KF_MatchLocalMap"):
+            with self.prof.scope("2.KF_LMM_dispatch"):
                 lmm = self._dispatch_local_map_match(
                     kfid, rec, pending["desc_dev"], pending["desc_ok_dev"],
                     pending["T_cw"])
@@ -945,7 +951,8 @@ class SlamSystem:
         m = self.map
         if pending["lmm"] is not None:
             fetch, ids = pending["lmm"]
-            ok_np, slot_np = fetch.result()
+            with self.prof.scope("2.KF_LMM_fetch"):
+                ok_np, slot_np = fetch.result()
             taken = set()
             mdst, msrc = [], []
             for ci in np.nonzero(ok_np)[0]:
@@ -958,7 +965,9 @@ class SlamSystem:
                 taken.add(s_)
                 mdst.append(dst)
                 msrc.append(src)
-            if m.merge_landmarks_batch(mdst, msrc):
+            with self.prof.scope("2.KF_LMM_merge"):
+                n_merged = m.merge_landmarks_batch(mdst, msrc)
+            if n_merged:
                 # sync the live keypoint table with the re-pointed slots
                 m.update_covisibility(kfid)
                 sl = np.clip(rec.lmid, 0, m.cap - 1)
@@ -969,26 +978,28 @@ class SlamSystem:
                     is3d=to(rec.valid & m.lm_is3d[sl] & (rec.lmid >= 0))))
 
         if pending["run_ba"] and p.slam_mode and len(m.keyframes) >= 2:
-            with record_function("1.BA_localBA"):
+            with self.prof.scope("1.BA_localBA"):
                 if p.async_ba and pending["defer"]:
                     # write back the previous keyframe's solve, dispatch
                     # this one's, write it back BA_LAG frames later
-                    self._finalize_pending_ba()
-                    self._pending_ba = self.estimator.begin_local_ba(m, kfid)
+                    with self.prof.scope("1.BA_finalize_prev"):
+                        self._finalize_pending_ba()
+                    with self.prof.scope("1.BA_begin"):
+                        self._pending_ba = self.estimator.begin_local_ba(m, kfid)
                     self._ba_age = 0
                 else:
                     T_old = rec.T_cw.copy()
                     self.estimator.local_ba(m, kfid)
                     self._apply_pose_correction(T_old, rec.T_cw)
                     self._refresh_kp_3d_flags()
-            with record_function("1.BA_MapFiltering"):
+            with self.prof.scope("1.BA_MapFiltering"):
                 self.estimator.map_filtering(m, kfid)
 
         # loop closing (the LoopCloser thread, loop_closer.cpp); every
         # keyframe feeds the place index, the first included
         if self.loopcloser is not None:
             T_old = rec.T_cw.copy()
-            with record_function("2.LC_Process"):
+            with self.prof.scope("2.LC_Process"):
                 ev = self.loopcloser.process_kf(m, kfid)
             if ev is not None:
                 self.last_loop_event = ev
@@ -1075,7 +1086,7 @@ class SlamSystem:
 
         if self.params.do_full_ba:
             if len(m.keyframes) >= 3:
-                with record_function("1.BA_fullBA"):
+                with self.prof.scope("1.BA_fullBA"):
                     self.estimator.full_ba(m)
             lg.write_kf_poses_tum(
                 os.path.join(out_dir, "ov2slam_fullba_kfs_traj.txt"),
@@ -1088,7 +1099,7 @@ class SlamSystem:
             return
         kf_Twc = [np.linalg.inv(m.keyframes[lg.kf_ids[i]].T_cw.astype(np.float64))
                   for i in kf_idx]
-        with record_function("1.BA_fullPoseGraph"):
+        with self.prof.scope("1.BA_fullPoseGraph"):
             relaxed = pg_mod.relax_full_trajectory(
                 np.stack(lg.poses_wc), np.asarray(kf_idx), np.stack(kf_Twc),
                 device=self.device)

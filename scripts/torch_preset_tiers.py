@@ -290,20 +290,14 @@ def make_system(backend: str, d: dict, device: str, detector=None):
 
 @contextlib.contextmanager
 def deterministic(ops: set):
-    """PyTorch's deterministic algorithms for the block (the port's loop
-    tiers): ``index_add_``, ``scatter_add_`` and indexed writes on the card
-    sum or write in a fixed order. An operation without a deterministic
-    version warns instead of raising; the name its warning gives is added
-    to `ops`. cuBLAS keeps its order only when ``CUBLAS_WORKSPACE_CONFIG``
-    was set before the card was first used (``main`` sets it)."""
-    import torch
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield
-    finally:
-        torch.use_deterministic_algorithms(False)
+    """``device.deterministic()`` for the block (the port's loop tiers),
+    the name of every operation without a deterministic version (its
+    warning) added to `ops`. ``main`` sets ``CUBLAS_WORKSPACE_CONFIG``
+    before the card is first used."""
+    from ov2slam_tpu_torch import device
+    with device.deterministic(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield
     for w in caught:
         msg = str(w.message)
         if "deterministic" in msg:

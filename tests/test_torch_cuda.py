@@ -1,7 +1,8 @@
 """GPU-only tests of the port: the CUDA kernels (the per-chunk LK loop
 ``lk_iterate`` and the fused forward-backward KLT ``klt_track``) against
-their plain versions, tracking through the kernel against the CPU path, and
-the plain-PyTorch RANSACs and CLAHE on the card against the CPU.
+their plain versions, tracking through the kernel against the CPU path, the
+plain-PyTorch RANSACs and CLAHE on the card against the CPU, and the
+command-line entry point on the card by default.
 
 This file imports neither jax nor OpenCV, so it runs on a GPU machine that
 has neither (``tests/conftest.py`` imports jax, hence ``--noconftest``):
@@ -494,3 +495,27 @@ def test_knn2_match_on_card_matches_cpu(cuda):
     for x, y in zip(og, oc):
         assert torch.equal(x.cpu(), y)
     assert (oc[0][:40] == 5).all()
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_the_card_by_default(cuda, tmp_path):
+    """python -m ov2slam_tpu_torch.run with no --device: 10 synthetic
+    frames, written as an EuRoC tree, run on the card through klt_track
+    (one launch per tracking call at least) and give one finite pose per
+    frame."""
+    import dataset_np as dnp
+    from ov2slam_tpu_torch import run
+    n = 10
+    fl, fr, _ = synp.render_sequence(n_frames=n)
+    stamps = dnp.euroc_stamps(n)
+    dnp.write_euroc(str(tmp_path / "seq"), [f.astype(np.uint8) for f in fl],
+                    [f.astype(np.uint8) for f in fr], stamps,
+                    [t + 2_000_000 for t in stamps])
+    dnp.write_opencv_yaml(str(tmp_path / "p.yaml"), synp.slam_params_dict())
+    k0 = klt.LAUNCHES
+    res = run.main([str(tmp_path / "p.yaml"), str(tmp_path / "seq"),
+                    "--out", str(tmp_path / "out")])
+    assert res["frames"] == n and res["dropped"] == 0
+    assert klt.LAUNCHES - k0 >= n - 1
+    traj = np.loadtxt(tmp_path / "out" / "ov2slam_traj.txt")
+    assert traj.shape == (n, 8) and np.isfinite(traj).all()
