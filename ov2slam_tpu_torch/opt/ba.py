@@ -10,8 +10,9 @@ equations are scatter-added into dense padded blocks — pose-pose (F, F, 6,
 6), landmark diagonal (L, nl, nl), pose-landmark (L, F, 6, nl) — landmarks
 are eliminated with one einsum and the (6F, 6F) reduced camera system is
 solved densely. Padded observations carry zero weight and in-range indices,
-so they add exact zeros. On the GPU the scatter-adds use atomics, so sums
-land in a run-dependent order (float32 reassociation only).
+so they add exact zeros. The sums are ordered segment sums
+(``ops/segment.py``, one index per solve): the same order in every run, on
+the card and on the CPU.
 
 Landmarks are XYZ (nl=3) or anchored inverse depth (nl=1, with Jacobians
 into the anchor pose block as well — buse_inv_depth).
@@ -25,6 +26,7 @@ import torch
 
 from ov2slam_tpu_torch.core import lie, smallalg
 from ov2slam_tpu_torch.core.lie import SE3
+from ov2slam_tpu_torch.ops.segment import segment_index, segment_sum
 from ov2slam_tpu_torch.opt import residuals as res
 from ov2slam_tpu_torch.opt.residuals import Calib
 
@@ -178,11 +180,18 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
     anc_idx = p.anchor[p.obs_lm] if invdepth else p.obs_kf
     ff = p.obs_kf * F + p.obs_kf          # flat (F*F) block index
     eyeL = torch.eye(nl, dtype=dt, device=dev)
-
-    def scatter(n, index, vals):
-        """Sum the rows of vals into n slots (index_add_: atomics on GPU)."""
-        out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=dt, device=dev)
-        return out.index_add_(0, index, vals)
+    # the normal equations' segment indices, fixed over the solve
+    hpp_idx, bp_idx = [ff], [p.obs_kf]
+    W_idx = [p.obs_lm * F + p.obs_kf]
+    if invdepth:
+        hpp_idx += [anc_idx * F + anc_idx, p.obs_kf * F + anc_idx,
+                    anc_idx * F + p.obs_kf]
+        bp_idx.append(anc_idx)
+        W_idx.append(p.obs_lm * F + anc_idx)
+    seg_hpp = segment_index(torch.cat(hpp_idx), F * F)
+    seg_bp = segment_index(torch.cat(bp_idx), F)
+    seg_lm = segment_index(p.obs_lm, L)
+    seg_W = segment_index(torch.cat(W_idx), L * F)
 
     def build(R, t, Xw, lam):
         r, J_obs, J_anc, J_lm, _ = _residuals_all(p, R, t, Xw, lam, invdepth)
@@ -197,26 +206,18 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
 
         JtJ = lambda A, B: torch.einsum("oij,oik->ojk", A, B)  # noqa: E731
         Jtr = lambda A: torch.einsum("oij,oi->oj", A, rw)      # noqa: E731
-        hpp_idx = [ff]
         hpp_val = [JtJ(Jo, Jo)]
-        bp_idx, bp_val = [p.obs_kf], [Jtr(Jo)]
-        W_idx = [p.obs_lm * F + p.obs_kf]
+        bp_val = [Jtr(Jo)]
         W_val = [JtJ(Jo, Jl)]
         if invdepth:
-            hpp_idx += [anc_idx * F + anc_idx, p.obs_kf * F + anc_idx,
-                        anc_idx * F + p.obs_kf]
             hpp_val += [JtJ(Ja, Ja), JtJ(Jo, Ja), JtJ(Ja, Jo)]
-            bp_idx.append(anc_idx)
             bp_val.append(Jtr(Ja))
-            W_idx.append(p.obs_lm * F + anc_idx)
             W_val.append(JtJ(Ja, Jl))
-        Hpp = scatter(F * F, torch.cat(hpp_idx),
-                      torch.cat(hpp_val)).reshape(F, F, 6, 6)
-        bp = scatter(F, torch.cat(bp_idx), torch.cat(bp_val))
-        Hll = scatter(L, p.obs_lm, JtJ(Jl, Jl))
-        bl = scatter(L, p.obs_lm, Jtr(Jl))
-        W = scatter(L * F, torch.cat(W_idx),
-                    torch.cat(W_val)).reshape(L, F, 6, nl)
+        Hpp = segment_sum(seg_hpp, torch.cat(hpp_val)).reshape(F, F, 6, 6)
+        bp = segment_sum(seg_bp, torch.cat(bp_val))
+        Hll = segment_sum(seg_lm, JtJ(Jl, Jl))
+        bl = segment_sum(seg_lm, Jtr(Jl))
+        W = segment_sum(seg_W, torch.cat(W_val)).reshape(L, F, 6, nl)
         return Hpp, bp, Hll, bl, W, cost
 
     def eval_cost(R, t, Xw, lam):
@@ -400,13 +401,12 @@ def solve_structure_only(p: BAProblem, max_iters: int = 3,
     dt, dev = p.Xw.dtype, p.Xw.device
     L = p.Xw.shape[0]
     th2 = _th2(p, th2_mono, th2_stereo)
-    n_obs = torch.zeros(L, dtype=torch.int64, device=dev).index_add_(
-        0, p.obs_lm, p.obs_valid.to(torch.int64))
+    seg = segment_index(p.obs_lm, L)
+    n_obs = segment_sum(seg, p.obs_valid.to(torch.int64))
     sel = p.lm_valid & (n_obs >= 2)
 
     def scatter(vals):
-        out = torch.zeros((L,) + tuple(vals.shape[1:]), dtype=dt, device=dev)
-        return out.index_add_(0, p.obs_lm, vals)
+        return segment_sum(seg, vals)
 
     def eqs(Xw):
         r, _, _, Jx, _ = _residuals_all(p, p.R, p.t, Xw, p.lam, False)

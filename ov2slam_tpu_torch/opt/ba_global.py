@@ -10,8 +10,8 @@ tensor:
   diagonal; its inverse is a batched nl x nl inverse);
 * the reduced camera system S = Hpp - W Hll^-1 W^T is applied matrix-free:
   each S @ v is two passes over the observations (gather pose blocks,
-  per-observation 2-vectors, scatter-add back with ``index_add_``: atomics
-  on the card, so sums land in a run-dependent order);
+  per-observation 2-vectors, sum back by ordered segment sums,
+  ``ops/segment.py``: one order in every run, no atomics);
 * the linear solve is preconditioned CG (block-Jacobi from the damped 6x6
   pose diagonal of Hpp, factored once per solve) with a fixed ``cg_iters``
   budget; an iterate whose residual vanished is frozen with ``torch.where``;
@@ -28,6 +28,7 @@ import torch
 
 from ov2slam_tpu_torch.core import lie, smallalg
 from ov2slam_tpu_torch.core.lie import SE3
+from ov2slam_tpu_torch.ops.segment import segment_index, segment_sum
 from ov2slam_tpu_torch.opt import ba as ba_mod
 from ov2slam_tpu_torch.opt.ba import BAProblem, BAResult
 
@@ -40,12 +41,17 @@ def solve_ba_global(p: BAProblem, invdepth: bool = True, max_iters: int = 12,
     """One global Schur-PCG LM solve over the whole problem; with
     ``l2_refine`` the chi2 outliers are masked and the inliers re-solved
     with L2 loss (apply_l2_after_robust, optimizer.cpp:488-735)."""
+    # the segment indices of the sums, one set for both solves
+    F, L = p.R.shape[0], p.lam.shape[0]
+    pose_idx = (torch.cat([p.obs_kf, p.anchor[p.obs_lm]]) if invdepth
+                else p.obs_kf)
+    segs = (segment_index(pose_idx, F), segment_index(p.obs_lm, L))
     out = _lm_pcg(p, p.R, p.t, p.Xw, p.lam, robust, invdepth, max_iters,
-                  th2_mono, th2_stereo, lam0, cg_iters)
+                  th2_mono, th2_stereo, lam0, cg_iters, segs)
     if l2_refine:
         p2 = p._replace(obs_valid=out.obs_inlier)
         out2 = _lm_pcg(p2, out.R, out.t, out.Xw, out.lam, False, invdepth,
-                       l2_iters, th2_mono, th2_stereo, lam0, cg_iters)
+                       l2_iters, th2_mono, th2_stereo, lam0, cg_iters, segs)
         out = BAResult(out2.R, out2.t, out2.Xw, out2.lam,
                        out2.obs_inlier & out.obs_inlier, out.cost0, out2.cost,
                        out.n_iters + out2.n_iters)
@@ -54,7 +60,7 @@ def solve_ba_global(p: BAProblem, invdepth: bool = True, max_iters: int = 12,
 
 def _lm_pcg(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
             invdepth: bool, max_iters: int, th2_mono: float, th2_stereo: float,
-            lam0: float, cg_iters: int) -> BAResult:
+            lam0: float, cg_iters: int, segs) -> BAResult:
     dt, dev = p.t.dtype, p.t.device
     F, L = p.R.shape[0], p.lam.shape[0]
     nl = 1 if invdepth else 3
@@ -65,10 +71,7 @@ def _lm_pcg(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
     eye6 = torch.eye(6, dtype=dt, device=dev)
     th2 = ba_mod._th2(p, th2_mono, th2_stereo)
     anc = p.anchor[p.obs_lm] if invdepth else p.obs_kf
-
-    def scatter(n, index, vals):
-        out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=dt, device=dev)
-        return out.index_add_(0, index, vals)
+    seg_pose, seg_lm = segs
 
     def build(R, t, Xw, lam):
         """Weighted Jacobians (masks folded in), landmark blocks, pose
@@ -84,17 +87,16 @@ def _lm_pcg(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
             Ja = torch.zeros_like(J_obs)
         Jl = J_lm * (w * lm_w[p.obs_lm])[:, None, None]
         rw = r * w[:, None]
-        Hll = scatter(L, p.obs_lm, torch.einsum("oij,oik->ojk", Jl, Jl))
-        bl = scatter(L, p.obs_lm, torch.einsum("oij,oi->oj", Jl, rw))
+        Hll = segment_sum(seg_lm, torch.einsum("oij,oik->ojk", Jl, Jl))
+        bl = segment_sum(seg_lm, torch.einsum("oij,oi->oj", Jl, rw))
         if invdepth:
-            idx = torch.cat([p.obs_kf, anc])
-            Hpp_d = scatter(F, idx, torch.einsum(
+            Hpp_d = segment_sum(seg_pose, torch.einsum(
                 "oij,oik->ojk", torch.cat([Jo, Ja]), torch.cat([Jo, Ja])))
-            bp = scatter(F, idx, torch.einsum(
+            bp = segment_sum(seg_pose, torch.einsum(
                 "oij,oi->oj", torch.cat([Jo, Ja]), torch.cat([rw, rw])))
         else:
-            Hpp_d = scatter(F, p.obs_kf, torch.einsum("oij,oik->ojk", Jo, Jo))
-            bp = scatter(F, p.obs_kf, torch.einsum("oij,oi->oj", Jo, rw))
+            Hpp_d = segment_sum(seg_pose, torch.einsum("oij,oik->ojk", Jo, Jo))
+            bp = segment_sum(seg_pose, torch.einsum("oij,oi->oj", Jo, rw))
         cost = ba_mod._robust_cost(p, chi2, th2, robust)
         return (Jo, Ja, Jl, Hll, bl, Hpp_d, bp), cost
 
@@ -123,12 +125,12 @@ def _lm_pcg(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
         def pose_scatter(u):
             """J^T u accumulated into the pose slots (F, 6)"""
             if invdepth:
-                return scatter(F, torch.cat([p.obs_kf, anc]), torch.einsum(
+                return segment_sum(seg_pose, torch.einsum(
                     "oij,oi->oj", torch.cat([Jo, Ja]), torch.cat([u, u])))
-            return scatter(F, p.obs_kf, torch.einsum("oij,oi->oj", Jo, u))
+            return segment_sum(seg_pose, torch.einsum("oij,oi->oj", Jo, u))
 
         def lm_scatter(u):
-            return scatter(L, p.obs_lm, torch.einsum("oij,oi->oj", Jl, u))
+            return segment_sum(seg_lm, torch.einsum("oij,oi->oj", Jl, u))
 
         def lm_gather(y):
             return torch.einsum("oij,oj->oi", Jl, y[p.obs_lm])

@@ -6,10 +6,9 @@ Replaces the reference's localPoseGraph / fullPoseGraph Ceres problems
 consecutive keyframes plus loop-closure edges, solved with LM; gauge-fixed
 poses (``pose_opt`` False) stay put. E padded edge slots (weight 0), closed-
 form 6x6 Jacobians (``residuals.relpose_jacobians``), dense (6F, 6F) normal
-equations scatter-added (``index_add_``: atomics on the card, so sums land
-in a run-dependent order, float32 reassociation only) and solved densely
-by Cholesky (the JAX package solves by LU: the same solution to float32
-rounding).
+equations summed by ordered segment sums (``ops/segment.py``: one order in
+every run, no atomics) and solved densely by Cholesky (the JAX package
+solves by LU: the same solution to float32 rounding).
 
 The solver takes a leading batch dimension: ``relax_full_trajectory`` solves
 its S independent segments as one batch (one batched Cholesky solve per
@@ -28,6 +27,7 @@ import torch
 
 from ov2slam_tpu_torch.core import lie, smallalg
 from ov2slam_tpu_torch.core.lie import SE3
+from ov2slam_tpu_torch.ops.segment import segment_index, segment_sum
 from ov2slam_tpu_torch.opt import residuals as res
 
 
@@ -83,6 +83,8 @@ def solve_pose_graph(p: PoseGraphProblem, max_iters: int = 10,
     blocks_idx = torch.cat([ii + p.edge_i, jj + p.edge_j, ii + p.edge_j,
                             jj + p.edge_i], dim=1).reshape(-1)
     g_idx = torch.cat([gi, gj], dim=1).reshape(-1)
+    seg_H = segment_index(blocks_idx, B * F * F)
+    seg_g = segment_index(g_idx, B * F)
     const6 = torch.repeat_interleave(1.0 - pose_w, 6, dim=-1)   # (B, 6F)
     mask6 = torch.repeat_interleave(pose_w, 6, dim=-1)
 
@@ -99,10 +101,8 @@ def solve_pose_graph(p: PoseGraphProblem, max_iters: int = 10,
         Jtr = lambda A: torch.einsum("beij,bei->bej", A, rw)       # noqa: E731
         vals = torch.cat([JtJ(Jaw, Jaw), JtJ(Jbw, Jbw), JtJ(Jaw, Jbw),
                           JtJ(Jbw, Jaw)], dim=1).reshape(-1, 6, 6)
-        H = torch.zeros((B * F * F, 6, 6), dtype=dt, device=dev)
-        H.index_add_(0, blocks_idx, vals)
-        g = torch.zeros((B * F, 6), dtype=dt, device=dev)
-        g.index_add_(0, g_idx, torch.cat([Jtr(Jaw), Jtr(Jbw)], 1).reshape(-1, 6))
+        H = segment_sum(seg_H, vals)
+        g = segment_sum(seg_g, torch.cat([Jtr(Jaw), Jtr(Jbw)], 1).reshape(-1, 6))
         Hf = H.reshape(B, F, F, 6, 6).permute(0, 1, 3, 2, 4).reshape(B, 6 * F, 6 * F)
         diag = torch.diagonal(Hf, dim1=-2, dim2=-1)
         Hf = Hf + torch.diag_embed(damp[:, None] * torch.clamp(diag.abs(), min=1e-8)

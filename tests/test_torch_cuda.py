@@ -321,8 +321,9 @@ def test_fast_score_and_remap_on_card_match_cpu(cuda, frames):
 def test_pipelined_stereo_on_card_matches_cpu(cuda):
     """force_realtime on the card against the CPU on the same 30 frames
     and the same fixed lags: every frame logged, keyframe counts within
-    one, ATEs within 1 mm, frames within 5 mm (local BA scatter-adds with
-    atomics on the card, so the two runs round differently), and one
+    one, ATEs within 1 mm, frames within 5 mm (the local BA's segment sums
+    add in another order on the card than on the CPU, so the two runs round
+    differently), and one
     klt_track launch per tracking call plus one per keyframe's stereo
     match."""
     from ov2slam_tpu_torch.config import SlamParams
@@ -519,3 +520,24 @@ def test_cli_runs_on_the_card_by_default(cuda, tmp_path):
     assert klt.LAUNCHES - k0 >= n - 1
     traj = np.loadtxt(tmp_path / "out" / "ov2slam_traj.txt")
     assert traj.shape == (n, 8) and np.isfinite(traj).all()
+
+
+@pytest.mark.cuda
+def test_segment_sum_repeats_on_card(cuda):
+    """The ordered segment sum gives the same bits in 10 calls on the card
+    (index_add_'s atomics need not), and the CPU's sums within float32
+    rounding."""
+    from ov2slam_tpu_torch.ops import segment
+    g = torch.Generator().manual_seed(0)
+    n, m = 2000, 40000
+    idx = torch.randint(0, n, (m,), generator=g)
+    idx[: m // 4] = 3
+    vals = torch.randn(m, 6, 6, generator=g)
+    seg = segment.segment_index(idx.to(cuda), n)
+    assert seg.levels is not None
+    outs = [segment.segment_sum(seg, vals.to(cuda)) for _ in range(10)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    ref = torch.zeros(n, 6, 6, dtype=torch.float64).index_add_(
+        0, idx, vals.double())
+    mag = torch.zeros_like(ref).index_add_(0, idx, vals.double().abs())
+    assert ((outs[0].cpu().double() - ref).abs() <= 1e-5 * mag + 1e-30).all()
