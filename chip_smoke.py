@@ -82,10 +82,11 @@ Phases (any failure raises; nothing falls back to the CPU):
    runs under PyTorch's deterministic algorithms
    (``torch_preset_tiers.deterministic``; ``CUBLAS_WORKSPACE_CONFIG`` is
    set before the card is first used), so that its ATE repeats from run to
-   run on the card. Phases 1-10, ``accurate_stereo`` and phase 12 run
-   alone, one after the other, so their times stay comparable; the four
-   out-and-back runs come last, as processes of their own (``--loop-run
-   NAME``) started together, so their host times are not clean timings;
+   run on the card. Phases 1-10, ``accurate_stereo``, phase 12 and phase
+   13 (a)-(b) run alone, one after the other, so their times stay
+   comparable; the four out-and-back runs come last, as processes of their
+   own (``--loop-run NAME``) started together beside phase 13 (c), so
+   their host times are not clean timings;
 12. cli: ``python -m ov2slam_tpu_torch.run``'s ``main``, called in this
    process with no ``--device`` (the card), over the first ``CLI_FRAMES``
    frames of the hard sequence written as an EuRoC ASL tree
@@ -102,14 +103,39 @@ Phases (any failure raises; nothing falls back to the CPU):
    run has ``log_timings`` on and a profiler table with ``CLI_LABELS``, and
    once it took a second keyframe the local BA's (``CLI_BA_LABELS``);
    every run launches ``klt_track`` exactly once per tracking call besides
-   one per keyframe stereo match, and ``lk_iterate`` never.
+   one per keyframe stereo match, and ``lk_iterate`` never;
+13. chunk: the throughput path. (a) One replay of the frame step's CUDA
+   graphs (``slam/graphs.py``) against the eager ``frame_step`` from the
+   same state and generator state, with the parallax gate shut and open:
+   keypoint masks equal, stats and pose within ``GRAPH_TOL``; then
+   ``bench.py``'s surface at full width (``CHUNK_FRAMES`` frames, step
+   0.03, ``slam_params_dict()``) through ``process_stereo_chunk`` in chunks
+   of ``CHUNK``: one finite pose per frame, keyframes only on a chunk's
+   last frame, the ATE within 1.5x + 5 mm of the JAX package's
+   ``process_stereo_chunk`` on the CPU (``REF_CHUNK_ATE``), one capture,
+   one graph ``klt_track`` launch per chunked frame (the kernel node
+   times its replays; the wrapper counts its warm-up and capture
+   launches, the frame-by-frame first chunk and the keyframe stereo
+   matches), and in every chunk call after the capture no host sync but
+   the gate's read, one per frame; ms per frame chunked and frame by frame
+   in turns (frames ``TIMED_FROM``-``TIMED_TO``), then 16 frames of each
+   under the profiler (device idle share); (b) the CLI with ``--chunk``
+   over the cli phase's tree, ``force_realtime`` 0: ATE within 1.5x + 5 mm
+   of the JAX CLI with ``--chunk 8`` on the CPU (``REF_CLI_CHUNK_ATE``);
+   (c) ``accurate_stereo_rect`` twice in this process with PyTorch's
+   deterministic algorithms off (the BA's sums are ordered): the two
+   trajectories equal element for element; then once under
+   ``torch.use_deterministic_algorithms(True)`` without ``warn_only``,
+   which raises on any operation without a deterministic version. (c) runs
+   beside the out-and-back runs of phase 11.
 
 The hard sequence is rendered once, at the start, by worker processes.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the ``kernels`` line sums them over every path.
 The last three lines of standard output are the card's ``nvidia-smi`` name
-and power limit, a JSON object describing the kernels, and
+and power limit, a JSON object describing the kernels (``klt_track`` also
+with the launches its graph replays made, ``graph_replay_launches``), and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile DIR`` also runs the slice before and after
@@ -150,6 +176,7 @@ from ov2slam_tpu_torch.ops import _build, klt, lk  # noqa: E402
 from ov2slam_tpu_torch.ops import image as im  # noqa: E402
 from ov2slam_tpu_torch.ops import mvg  # noqa: E402
 from ov2slam_tpu_torch.slam import frontend as fe_mod  # noqa: E402
+from ov2slam_tpu_torch.slam import graphs as graphs_mod  # noqa: E402
 from ov2slam_tpu_torch.slam import mapper as mapper_mod  # noqa: E402
 from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
 sys.path.insert(0, str(ROOT / "scripts"))
@@ -218,6 +245,25 @@ CLI_FRAMES = cli.CLI_FRAMES
 REF_CLI_ATE = 0.006771421627648784
 CLI_LABELS = ("0.Full-Front_End", "2.KF_DeviceStep", "2.KF_Registry_fetch")
 CLI_BA_LABELS = {0: ("1.BA_localBA",), 1: ("1.BA_localBA", "1.BA_begin")}
+# the chunk phase: bench.py's surface (tests/synthetic_np.py's sequence of
+# CHUNK_FRAMES frames, slam_params_dict()) through process_stereo_chunk in
+# chunks of CHUNK, and the ATE of the JAX package's process_stereo_chunk
+# over it on the CPU (`JAX_PLATFORMS=cpu python3
+# scripts/torch_preset_tiers.py --backend jax --tiers bench --chunk 8`);
+# the cli phase's tree through the CLI with --chunk CHUNK, and the JAX
+# CLI's ATE with --chunk 8 on the CPU (`JAX_PLATFORMS=cpu python3
+# scripts/torch_cli_run.py --backend jax --chunk 8`); a replay of the
+# captured frame step against the eager step on the same state: keypoint
+# masks equal, stats and pose within GRAPH_TOL (the same kernels on the
+# same inputs; cuBLAS may pick another algorithm inside a capture); frames
+# TIMED_FROM.. TIMED_TO - 1 timed in turns, chunked and frame by frame (the
+# first chunk runs frame by frame until the map is initialized, the second
+# captures the graphs)
+CHUNK, CHUNK_FRAMES = 8, 120
+REF_CHUNK_ATE = 0.0028613772975224585
+REF_CLI_CHUNK_ATE = 0.007055916346033503
+GRAPH_TOL = 1e-5
+TIMED_FROM, TIMED_TO = 16, 64
 # the loop phase: the out-and-back runs of scripts/torch_preset_tiers.py and
 # their gates (tests/test_loopclosing.py's)
 LOOP_RUNS = ("oab_stereo", "oab_stereo_rt", "oab_mono", "oab_kidnap")
@@ -642,9 +688,10 @@ def count_syncs(fn, sites: collections.Counter):
 
 
 def gate_site() -> str:
-    """The call site of the epipolar gate's host read in track_frame."""
-    lines, start = inspect.getsourcelines(fe_mod.track_frame)
-    k = next(i for i, line in enumerate(lines) if "avg_par > 2.0 *" in line)
+    """The call site of the epipolar gate's host read (frontend.gate_open,
+    which both the eager step and the graph replays call)."""
+    lines, start = inspect.getsourcelines(fe_mod.gate_open)
+    k = next(i for i, line in enumerate(lines) if "bool(gate)" in line)
     return f"ov2slam_tpu_torch/slam/frontend.py:{start + k}"
 
 
@@ -666,8 +713,8 @@ def direction_angle(a, b) -> float:
 
 @contextlib.contextmanager
 def recording_essential_ransac(calls: list):
-    """Record every essential_ransac call's caller ("track_frame" for the
-    epipolar filter, "_try_mono_init" for the mono bootstrap) and result."""
+    """Record every essential_ransac call's caller ("epipolar_filter" for
+    the front end's filter, "_try_mono_init" for the mono bootstrap) and result."""
     real = mvg.essential_ransac
 
     def rec(*a, **k):
@@ -762,7 +809,7 @@ def phase_ransac(dev):
             *track_args, **track_kw, do_epipolar=True,
             draw=lambda v, k, s: mvg.draw_samples(v, k, s, gen_d))
     assert len(calls) == 1, "the epipolar gate did not fire on ~11 px of parallax"
-    assert calls[0][0] == "track_frame", calls[0][0]
+    assert calls[0][0] == "epipolar_filter", calls[0][0]
     eres = calls[0][1]
     n_tr, n_in = int(res.n_tracked), int(eres.n_inliers)
     kept = int(res.kps.valid.sum())
@@ -792,13 +839,11 @@ def phase_clahe(dev, frame):
     return ms, ops
 
 
-def phase_slice(dev):
+def phase_slice(dev, seq):
     """The stereo slice on the card, from the system's public entry points,
-    with the epipolar filter on."""
-    t0 = time.perf_counter()
-    fl, fr, gt = syn.render_sequence(n_frames=N_FRAMES, step=STEP, yaw_rate=YAW)
-    log(f"[slice] rendered {N_FRAMES} frames at {syn.W}x{syn.H} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    with the epipolar filter on, over the first N_FRAMES frames of `seq`
+    (the synthetic sequence, left, right, camera-to-world poses)."""
+    fl, fr, gt = (x[:N_FRAMES] for x in seq)
     slam = SlamSystem(SlamParams.from_dict(syn.slam_params_dict()), device=dev)
     assert slam.params.doepipolar
     calls, syncs = [], collections.Counter()
@@ -897,7 +942,7 @@ def phase_mono(dev):
     gt_t = np.stack([T[:3, 3] for T in gt])
     ate = ate_rmse(est[:, :3, 3], gt_t, with_scale=True)
     steady = float(np.sum(dts[1:]))
-    n_gate = sum(1 for caller, _ in calls if caller == "track_frame")
+    n_gate = sum(1 for caller, _ in calls if caller == "epipolar_filter")
     gate_reads = syncs[gate_site()]
     n_kf, n3d = len(slam.map.keyframes), slam.map.n_3d()
     log(f"[mono] init at frame {inits[0] if inits else None}, keyframes "
@@ -986,7 +1031,7 @@ def phase_tiers(tag: str, dev, names, hard):
             f" merge, deferred BA writebacks {pc['ba_writeback']}; klt_track "
             f"{klt.LAUNCHES} ({len(stereo_kf)} in keyframe stereo matches, "
             f"per tracking call {sorted(set(per_call[1:]))}), lk_iterate "
-            f"{lk.LAUNCHES}; epipolar gate fired {sum(c == 'track_frame' for c, _ in gate)}"
+            f"{lk.LAUNCHES}; epipolar gate fired {sum(c == 'epipolar_filter' for c, _ in gate)}"
             f" times")
         log_syncs(f"{tag} {name}", syncs, n)
         if slam.rect_maps is not None:
@@ -1199,87 +1244,323 @@ def counting_tracking_calls(per_call: list, stereo_kf: list):
         SlamSystem.process_stereo = real
 
 
-def phase_cli(total: dict, frames):
+def phase_cli(total: dict, frames, root: Path):
     """12. cli: the port's command-line entry point, in this process (so
     the launch counters are read), over the first CLI_FRAMES frames of the
-    hard sequence written as an EuRoC ASL tree, the shipped
+    hard sequence written as an EuRoC ASL tree under `root`, the shipped
     accurate_stereo_nolc preset as YAML: (a) as shipped (force_realtime,
     frames dropped by the wall clock), (b) with force_realtime 0, twice;
-    log_timings on in all three."""
+    log_timings on in all three. Returns the tree's stamps."""
     from ov2slam_tpu_torch import run
     from ov2slam_tpu_torch.io import datasets
     from ov2slam_tpu_torch.io.profiler import Profiler
     L, R, gt = (x[:CLI_FRAMES] for x in frames)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
+    t0 = time.perf_counter()
+    stamps = cli.write_dataset(str(root / "seq"), L, R)
+    t_write = time.perf_counter() - t0
+    pngs = sorted((root / "seq" / "mav0" / "cam0" / "data").glob("*.png"))
+    t0 = time.perf_counter()
+    datasets.read_png_gray(str(pngs[0]))    # builds the C++ unfilter
+    log(f"[cli] png_unfilter.cpp built (g++) and first image read in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    decoded = [datasets.read_png_gray(str(f)) for f in pngs]
+    decode_ms = 1000 * (time.perf_counter() - t0) / len(pngs)
+    assert all(np.array_equal(d, l.astype(np.float32))
+               for d, l in zip(decoded, L)), "a PNG decoded wrong"
+    log(f"[cli] {CLI_FRAMES} stereo pairs written as an EuRoC tree in "
+        f"{t_write:.1f} s; decode {decode_ms:.3f} ms per 752x480 grey "
+        f"image (host, every row filter type), pixels equal")
+    trajs = {}
+    for name, realtime, timings in (("a", 1, 1), ("b1", 0, 1), ("b2", 0, 1)):
+        params = str(root / f"{name}.yaml")
+        cli.write_params(params, realtime, timings)
+        out = root / f"out_{name}"
+        Profiler.instance().reset()
+        per_call, stereo_kf = [], []
+        klt.LAUNCHES = lk.LAUNCHES = 0
+        with counting_stereo_kf_steps(stereo_kf), \
+                counting_tracking_calls(per_call, stereo_kf):
+            res = run.main([params, str(root / "seq"), "--out", str(out)])
+        total["klt_track"] += klt.LAUNCHES
+        total["lk_iterate"] += lk.LAUNCHES
+        rows, ate = cli.trajectory_ate(str(out / "ov2slam_traj.txt"), stamps, gt)
+        traj = np.loadtxt(out / "ov2slam_traj.txt", ndmin=2)
+        labels = sorted(Profiler.instance().timers)
+        log(f"[cli] run ({name}), force_realtime {realtime}: processed "
+            f"{res['frames']}, dropped {res['dropped']}, {res['keyframes']} "
+            f"keyframes, {res['frames'] / res['seconds']:.2f} fps, {rows} rows, ATE "
+            f"{ate:.5f} m ("
+            + ("not gated: the frames processed depend on the clock" if realtime
+               else f"JAX CLI on the CPU {REF_CLI_ATE:.5f}, bound "
+               f"{ATE_SLACK * REF_CLI_ATE + ATE_ABS:.5f}")
+            + "); "
+            f"klt_track {klt.LAUNCHES} ({len(stereo_kf)} in keyframe "
+            f"stereo matches, per tracking call {sorted(set(per_call[1:]))}),"
+            f" lk_iterate {lk.LAUNCHES}; profiler labels {labels}")
+        assert res["frames"] + res["dropped"] == CLI_FRAMES, res
+        assert traj.shape == (res["frames"], 8) and np.isfinite(traj).all(), (
+            f"({name}): {traj.shape} rows for {res['frames']} frames")
+        assert len(per_call) == res["frames"], (len(per_call), res)
+        assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
+            f"({name}): tracking calls must launch klt_track once: {per_call}")
+        assert klt.LAUNCHES == res["frames"] - 1 + len(stereo_kf)
+        assert lk.LAUNCHES == 0, f"({name}): the per-chunk LK path ran"
+        missing = (set(CLI_LABELS) | set(CLI_BA_LABELS[realtime] if
+                                         res["keyframes"] > 1 else ())
+                   ) - set(labels)
+        assert not missing, f"({name}): no {sorted(missing)} in the table"
+        if name == "a":
+            idx = np.rint((traj[:, 0] - stamps[0] * 1e-9) / 0.05).astype(int)
+            log(f"[cli] run (a) processed frames {idx.tolist()}")
+        else:
+            assert res["dropped"] == 0
+            assert ate <= ATE_SLACK * REF_CLI_ATE + ATE_ABS, ate
+            trajs[name] = {f.name: f.read_bytes()
+                           for f in sorted(out.glob("*.txt"))}
+    assert trajs["b1"] == trajs["b2"], (
+        "(b): two runs over the same frames wrote different files: "
+        + str([f for f in trajs["b1"] if trajs["b1"][f] != trajs["b2"].get(f)]))
+    log(f"[cli] (b) twice: {len(trajs['b1'])} trajectory files, "
+        "byte-identical")
+    return stamps
+
+
+@contextlib.contextmanager
+def counting_graph_runs(runs: list):
+    """Record every StepGraphs that ran a chunk (its graphs, their klt_track
+    nodes and replays are read after the run)."""
+    real = graphs_mod.StepGraphs.run
+
+    def rec(self, *a, **k):
+        if self not in runs:
+            runs.append(self)
+        return real(self, *a, **k)
+    graphs_mod.StepGraphs.run = rec
+    try:
+        yield
+    finally:
+        graphs_mod.StepGraphs.run = real
+
+
+def graph_counts(runs: list):
+    """(captures, klt_track launches the replays made) of the recorded
+    StepGraphs caches."""
+    gs = [g for c in runs for g in c.graphs.values()]
+    return len(gs), sum(g.graph_launches() for g in gs)
+
+
+def chunked(slam, frames, start: int = 0, end: int = None):
+    """Feed frames[start:end] (left, right, time) to process_stereo_chunk in
+    chunks of CHUNK (counted from frame 0)."""
+    end = len(frames) if end is None else end
+    for i in range(start, end, CHUNK):
+        slam.process_stereo_chunk(frames[i:min(i + CHUNK, end)])
+
+
+def graph_vs_eager(dev):
+    """13a. One replay of the captured frame step against the eager
+    frame_step from the same state and generator state: on the next frame
+    (the parallax gate shut) and four frames on (open, so the filter's
+    graph replays too)."""
+    fl, fr, _ = syn.render_sequence(n_frames=8, step=MONO_STEP)
+    slam = SlamSystem(SlamParams.from_dict(syn.slam_params_dict()), device=dev)
+    for i in range(3):
+        slam.process_stereo(fl[i], fr[i], i * 0.05)
+    st, kw = slam.fe_state, slam._step_kwargs()
+    lm = slam.map.device_landmarks()
+    cache = graphs_mod.StepGraphs()
+    for j, gate in ((3, "shut"), (7, "open")):
+        img = slam._to_device_u8(fl[j])
+        g0 = st.gen.get_state()
+        new_e, s_e = fe_mod.frame_step(st, img, *lm, slam.cam_l, **kw)
+        g_eager = st.gen.get_state()
+        st.gen.set_state(g0)
+        before = dict(cache.last.replays) if cache.last else {}
+        new_g, s_g = cache.run(st, img[None], *lm, slam.cam_l, kw)
+        torch.cuda.synchronize()
+        filtered = cache.last.replays.get("filter", 0) - before.get("filter", 0)
+        d_stats = float((s_g[0] - s_e).abs().max())
+        d_pose = float(torch.cat([(new_g.R_cw - new_e.R_cw).abs().flatten(),
+                                  (new_g.t_cw - new_e.t_cw).abs()]).max())
+        same_valid = bool(torch.equal(new_g.kps.valid, new_e.kps.valid))
+        log(f"[chunk] graph replay vs eager frame_step, gate {gate}: filter "
+            f"graph replayed {filtered} times, keypoint masks equal "
+            f"{same_valid}, stats {d_stats:.3g}, pose {d_pose:.3g} apart "
+            f"(tolerance {GRAPH_TOL}), generator advanced alike "
+            f"{bool(torch.equal(st.gen.get_state(), g_eager))}")
+        assert filtered == (gate == "open"), (gate, filtered)
+        assert same_valid and d_stats <= GRAPH_TOL and d_pose <= GRAPH_TOL
+        assert torch.equal(st.gen.get_state(), g_eager)
+    log(f"[chunk] graphs captured in {cache.last.capture_s:.2f} s (warm-up "
+        f"and three captures: front, filter, back)")
+
+
+def phase_chunk(dev, total: dict, seq, cli_root: Path, cli_stamps, cli_gt):
+    """13. chunk: the throughput path (process_stereo_chunk, CUDA-graph
+    replays of the frame step) on the bench surface at full width (`seq`:
+    the synthetic sequence of CHUNK_FRAMES frames), then the CLI with
+    --chunk over the cli phase's tree. Returns the klt_track launches of
+    the graph replays."""
+    from ov2slam_tpu_torch import run
+    graph_vs_eager(dev)
+    fl, fr, gt = seq
+    gt_t = np.stack([T[:3, 3] for T in gt])
+    frames = [(fl[i], fr[i], i * 0.05) for i in range(CHUNK_FRAMES)]
+    params = SlamParams.from_dict(syn.slam_params_dict())
+    assert params.doepipolar and not params.force_realtime
+
+    # (a) the gated run: ATE, launches, host syncs inside each chunk call
+    slam = SlamSystem(params, device=dev)
+    per_chunk, stereo_kf, runs = [], [], []
+    real_chunk_step = fe_mod.frame_chunk_step
+
+    def counted(*a, **k):
+        sites = collections.Counter()
+        out = count_syncs(lambda: real_chunk_step(*a, **k), sites)
+        per_chunk.append(sites)
+        return out
+
+    klt.LAUNCHES = lk.LAUNCHES = 0
+    fe_mod.frame_chunk_step = counted
+    try:
+        with counting_stereo_kf_steps(stereo_kf), counting_graph_runs(runs):
+            chunked(slam, frames)
+            slam.flush()
+            torch.cuda.synchronize()
+    finally:
+        fe_mod.frame_chunk_step = real_chunk_step
+    captures, replay_launches = graph_counts(runs)
+    total["klt_track"] += klt.LAUNCHES
+    total["lk_iterate"] += lk.LAUNCHES
+    est = np.stack([np.asarray(T)[:3, 3] for T in slam.logger.poses_wc])
+    ate = ate_rmse(est, gt_t)
+    n_chunked = CHUNK_FRAMES - CHUNK
+    g = runs[0].last
+    kf_frames = [j for j, k in enumerate(slam.logger.is_kf) if k]
+    steady = collections.Counter()
+    for c in per_chunk[1:]:
+        steady.update(c)
+    bound = ATE_SLACK * REF_CHUNK_ATE + ATE_ABS
+    log(f"[chunk] bench surface, {CHUNK_FRAMES} frames in chunks of {CHUNK}: "
+        f"ATE {ate:.5f} m (JAX process_stereo_chunk on the CPU "
+        f"{REF_CHUNK_ATE:.5f}, bound {bound:.5f}), keyframes "
+        f"{len(slam.map.keyframes)} at frames {kf_frames}, landmarks "
+        f"{slam.map.n_3d()}; {len(per_chunk)} chunk calls, graphs captured "
+        f"{captures} time(s) (warm-up and captures {g.capture_s:.2f} s); "
+        f"klt_track by its wrapper "
+        f"{klt.LAUNCHES} ({CHUNK - 1} frame-by-frame tracking calls, "
+        f"{len(stereo_kf)} keyframe stereo matches, the warm-up and capture "
+        f"of each graph), by graph replays {replay_launches} (nodes "
+        f"{g.nodes}, replays {g.replays}); lk_iterate {lk.LAUNCHES}")
+    log_syncs("chunk, calls after the capture", steady, n_chunked - CHUNK)
+    log(f"[chunk] host syncs of the capturing call: {dict(per_chunk[0])}")
+    assert len(slam.logger.poses_wc) == CHUNK_FRAMES and np.isfinite(est).all()
+    assert ate <= bound, f"chunked ATE {ate:.4f} m, bound {bound:.4f}"
+    assert all(j < CHUNK or j % CHUNK == CHUNK - 1 for j in kf_frames), kf_frames
+    assert captures == 1, f"{captures} captures for one key"
+    assert replay_launches == n_chunked, (replay_launches, n_chunked)
+    assert klt.LAUNCHES == CHUNK - 1 + len(stereo_kf) + 2 * sum(g.nodes.values())
+    assert lk.LAUNCHES == 0, "the per-chunk LK path ran"
+    assert set(steady) <= {gate_site()}, f"host syncs in a chunk: {dict(steady)}"
+    assert steady[gate_site()] == n_chunked - CHUNK, steady
+
+    # ms per frame, chunked and frame by frame, in turns; then frames
+    # TIMED_TO.. TIMED_TO + 15 of the last two under the profiler
+    last = {}
+    for mode in ("chunk", "frame", "frame", "chunk"):
+        slam = SlamSystem(params, device=dev)
+        if mode == "chunk":
+            chunked(slam, frames, 0, TIMED_FROM)
+        else:
+            for f in frames[:TIMED_FROM]:
+                slam.process_stereo(*f)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stamps = cli.write_dataset(str(root / "seq"), L, R)
-        t_write = time.perf_counter() - t0
-        pngs = sorted((root / "seq" / "mav0" / "cam0" / "data").glob("*.png"))
-        t0 = time.perf_counter()
-        datasets.read_png_gray(str(pngs[0]))    # builds the C++ unfilter
-        log(f"[cli] png_unfilter.cpp built (g++) and first image read in "
-            f"{time.perf_counter() - t0:.2f} s")
-        t0 = time.perf_counter()
-        decoded = [datasets.read_png_gray(str(f)) for f in pngs]
-        decode_ms = 1000 * (time.perf_counter() - t0) / len(pngs)
-        assert all(np.array_equal(d, l.astype(np.float32))
-                   for d, l in zip(decoded, L)), "a PNG decoded wrong"
-        log(f"[cli] {CLI_FRAMES} stereo pairs written as an EuRoC tree in "
-            f"{t_write:.1f} s; decode {decode_ms:.3f} ms per 752x480 grey "
-            f"image (host, every row filter type), pixels equal")
-        trajs = {}
-        for name, realtime, timings in (("a", 1, 1), ("b1", 0, 1), ("b2", 0, 1)):
-            params = str(root / f"{name}.yaml")
-            cli.write_params(params, realtime, timings)
-            out = root / f"out_{name}"
-            Profiler.instance().reset()
-            per_call, stereo_kf = [], []
-            klt.LAUNCHES = lk.LAUNCHES = 0
-            with counting_stereo_kf_steps(stereo_kf), \
-                    counting_tracking_calls(per_call, stereo_kf):
-                res = run.main([params, str(root / "seq"), "--out", str(out)])
-            total["klt_track"] += klt.LAUNCHES
-            total["lk_iterate"] += lk.LAUNCHES
-            rows, ate = cli.trajectory_ate(str(out / "ov2slam_traj.txt"), stamps, gt)
-            traj = np.loadtxt(out / "ov2slam_traj.txt", ndmin=2)
-            labels = sorted(Profiler.instance().timers)
-            log(f"[cli] run ({name}), force_realtime {realtime}: processed "
-                f"{res['frames']}, dropped {res['dropped']}, {res['keyframes']} "
-                f"keyframes, {res['frames'] / res['seconds']:.2f} fps, {rows} rows, ATE "
-                f"{ate:.5f} m ("
-                + ("not gated: the frames processed depend on the clock" if realtime
-                   else f"JAX CLI on the CPU {REF_CLI_ATE:.5f}, bound "
-                   f"{ATE_SLACK * REF_CLI_ATE + ATE_ABS:.5f}")
-                + "); "
-                f"klt_track {klt.LAUNCHES} ({len(stereo_kf)} in keyframe "
-                f"stereo matches, per tracking call {sorted(set(per_call[1:]))}),"
-                f" lk_iterate {lk.LAUNCHES}; profiler labels {labels}")
-            assert res["frames"] + res["dropped"] == CLI_FRAMES, res
-            assert traj.shape == (res["frames"], 8) and np.isfinite(traj).all(), (
-                f"({name}): {traj.shape} rows for {res['frames']} frames")
-            assert len(per_call) == res["frames"], (len(per_call), res)
-            assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
-                f"({name}): tracking calls must launch klt_track once: {per_call}")
-            assert klt.LAUNCHES == res["frames"] - 1 + len(stereo_kf)
-            assert lk.LAUNCHES == 0, f"({name}): the per-chunk LK path ran"
-            missing = (set(CLI_LABELS) | set(CLI_BA_LABELS[realtime] if
-                                             res["keyframes"] > 1 else ())
-                       ) - set(labels)
-            assert not missing, f"({name}): no {sorted(missing)} in the table"
-            if name == "a":
-                idx = np.rint((traj[:, 0] - stamps[0] * 1e-9) / 0.05).astype(int)
-                log(f"[cli] run (a) processed frames {idx.tolist()}")
-            else:
-                assert res["dropped"] == 0
-                assert ate <= ATE_SLACK * REF_CLI_ATE + ATE_ABS, ate
-                trajs[name] = {f.name: f.read_bytes()
-                               for f in sorted(out.glob("*.txt"))}
-        assert trajs["b1"] == trajs["b2"], (
-            "(b): two runs over the same frames wrote different files: "
-            + str([f for f in trajs["b1"] if trajs["b1"][f] != trajs["b2"].get(f)]))
-        log(f"[cli] (b) twice: {len(trajs['b1'])} trajectory files, "
-            "byte-identical")
+        if mode == "chunk":
+            chunked(slam, frames, TIMED_FROM, TIMED_TO)
+        else:
+            for f in frames[TIMED_FROM:TIMED_TO]:
+                slam.process_stereo(*f)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0) / (TIMED_TO - TIMED_FROM)
+        log(f"[chunk] {mode}: {ms:.1f} ms/frame over frames {TIMED_FROM}-"
+            f"{TIMED_TO - 1} ({1000 / ms:.2f} fps), keyframes "
+            f"{len(slam.map.keyframes)}")
+        last[mode] = slam
+    for mode, slam in last.items():
+        seg = frames[TIMED_TO:TIMED_TO + 2 * CHUNK]
+        run_p = profile_run(lambda: chunked(slam, seg) if mode == "chunk"
+                            else [slam.process_stereo(*f) for f in seg])
+        wall, busy, ops, _ = run_p
+        log(f"[chunk] {mode} under the profiler, frames {TIMED_TO}-"
+            f"{TIMED_TO + 2 * CHUNK - 1}: wall {wall / len(seg):.1f} ms/frame, "
+            f"device busy {busy / len(seg):.1f} ms/frame (idle share "
+            f"{1 - busy / wall:.3f}), {ops / len(seg):.0f} device operations "
+            f"per frame")
+
+    # (b) the CLI with --chunk over the cli phase's tree, force_realtime 0
+    params_path = str(cli_root / "chunk.yaml")
+    cli.write_params(params_path, 0)
+    out = cli_root / "out_chunk"
+    stereo_kf, runs = [], []
+    klt.LAUNCHES = lk.LAUNCHES = 0
+    with counting_stereo_kf_steps(stereo_kf), counting_graph_runs(runs):
+        res = run.main([params_path, str(cli_root / "seq"), "--out", str(out),
+                        "--chunk", str(CHUNK)])
+    captures, cli_replays = graph_counts(runs)
+    total["klt_track"] += klt.LAUNCHES
+    total["lk_iterate"] += lk.LAUNCHES
+    rows, ate = cli.trajectory_ate(str(out / "ov2slam_traj.txt"), cli_stamps,
+                                   cli_gt)
+    bound = ATE_SLACK * REF_CLI_CHUNK_ATE + ATE_ABS
+    log(f"[chunk] CLI --chunk {CHUNK}, force_realtime 0: processed "
+        f"{res['frames']}, {res['keyframes']} keyframes, "
+        f"{res['frames'] / res['seconds']:.2f} fps, {rows} rows, ATE {ate:.5f} m "
+        f"(JAX CLI --chunk {CHUNK} on the CPU {REF_CLI_CHUNK_ATE:.5f}, bound "
+        f"{bound:.5f}); klt_track by its wrapper {klt.LAUNCHES} ({len(stereo_kf)} "
+        f"keyframe stereo matches), by graph replays {cli_replays}, graphs "
+        f"captured {captures} time(s); lk_iterate {lk.LAUNCHES}")
+    assert res["frames"] == rows == CLI_FRAMES and res["dropped"] == 0, res
+    assert ate <= bound, f"CLI --chunk ATE {ate:.4f} m, bound {bound:.4f}"
+    assert captures == 1 and cli_replays == CLI_FRAMES - CHUNK, (captures, cli_replays)
+    assert lk.LAUNCHES == 0
+    return replay_launches + cli_replays
+
+
+def phase_repeat(dev, total: dict, hard):
+    """13c. P4: accurate_stereo_rect twice in this process with PyTorch's
+    deterministic algorithms off: the two trajectories equal element for
+    element (the BA's and the pose graph's sums are ordered); then once
+    under torch.use_deterministic_algorithms(True) without warn_only, which
+    raises on any operation that has no deterministic version."""
+    name = "accurate_stereo_rect"
+    assert not torch.are_deterministic_algorithms_enabled()
+    trajs = []
+    klt.LAUNCHES = lk.LAUNCHES = 0
+    for k in range(3):
+        slam = SlamSystem(SlamParams.from_dict(tiers.tier_dict(name)), device=dev)
+        if k < 2:
+            row = tiers.run_tier(slam, hard, False, sync=torch.cuda.synchronize)
+        else:
+            torch.use_deterministic_algorithms(True)
+            try:
+                row = tiers.run_tier(slam, hard, False,
+                                     sync=torch.cuda.synchronize)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        trajs.append(np.stack(slam.logger.poses_wc))
+        log(f"[repeat] {name} run {k + 1}"
+            + (" under torch.use_deterministic_algorithms(True)" if k == 2
+               else ", deterministic algorithms off")
+            + f": ATE {row['ate']:.8f} m, keyframes {row['keyframes']}, "
+            f"landmarks {row['landmarks']}")
+    total["klt_track"] += klt.LAUNCHES
+    total["lk_iterate"] += lk.LAUNCHES
+    same = trajs[0].shape == trajs[1].shape and np.array_equal(trajs[0], trajs[1])
+    log(f"[repeat] {name}: runs 1 and 2 equal element for element: {same}; "
+        f"run 3 raised on no operation")
+    assert same, "two runs in one process parted"
 
 
 def start_loop_runs():
@@ -1486,7 +1767,13 @@ def main() -> int:
     phase_done("kernels")
     phase_ransac(dev)
     phase_clahe(dev, fl[0])
-    launches, frames = phase_slice(dev)
+    # the synthetic sequence: the slice takes its first N_FRAMES frames, the
+    # chunk phase all of them (bench.py's surface)
+    t0 = time.perf_counter()
+    seq = syn.render_sequence(n_frames=CHUNK_FRAMES, step=STEP, yaw_rate=YAW)
+    log(f"[render] {CHUNK_FRAMES} synthetic frames at {syn.W}x{syn.H} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, frames = phase_slice(dev, seq)
     mono, mono_frames = phase_mono(dev)
     phase_done("slices")
     presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
@@ -1496,12 +1783,24 @@ def main() -> int:
     phase_lc_tier(dev, loop, hard_all)
     phase_done("loop tier")
     cli_total = {"klt_track": 0, "lk_iterate": 0}
-    phase_cli(cli_total, hard)
-    phase_done("cli")
-    finish_loop_runs(start_loop_runs(), loop)
+    chunk = {"klt_track": 0, "lk_iterate": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_root = Path(tmp)
+        stamps = phase_cli(cli_total, hard, cli_root)
+        phase_done("cli")
+        graph_launches = phase_chunk(dev, chunk, seq, cli_root, stamps,
+                                     hard[2][:CLI_FRAMES])
+    phase_done("chunk (a), (b)")
+    # the out-and-back runs beside 13c, which needs no clean timing
+    procs = start_loop_runs()
+    try:
+        phase_repeat(dev, chunk, hard)
+        phase_done("chunk (c)")
+    finally:
+        finish_loop_runs(procs, loop)
     phase_done("out-and-back runs")
     launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
-                + cli_total[k] for k in launches}
+                + cli_total[k] + chunk[k] for k in launches}
     if args.profile:
         phase_compare(dev, frames)
         phase_profile(dev, frames, mono_frames, args.profile, hard)
@@ -1515,7 +1814,7 @@ def main() -> int:
          "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
          "launches": launches["klt_track"], "max_abs_err": klt_worst,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-         "library_ms": None},
+         "library_ms": None, "graph_replay_launches": graph_launches},
         {"name": "lk_iterate", "route": "cuda",
          "source": "ov2slam_tpu_torch/csrc/lk_iterate.cu",
          "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",

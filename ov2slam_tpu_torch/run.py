@@ -6,12 +6,15 @@ Replaces the reference's ROS node (reference: src/ov2slam_node.cpp:159-223,
 
     python -m ov2slam_tpu_torch.run <params.yaml> <dataset_dir> \
         [--dataset euroc|kitti|tartanair] [--out DIR] [--max-frames N] \
-        [--viz-every N] [--device cuda|cpu]
+        [--chunk N] [--viz-every N] [--device cuda|cpu]
 
 Runs on the first CUDA card unless ``--device`` names another device; with
 no card and no ``--device`` it raises. Writes reference-compatible
 trajectory files into --out and prints the profiler summary when
-log_timings is set. The run uses PyTorch's deterministic algorithms
+log_timings is set. With ``--chunk N`` stereo frames go to
+``SlamSystem.process_stereo_chunk`` N at a time (throughput mode: on the
+card the frame step replays as CUDA graphs, and keyframe decisions quantize
+to the chunks' ends). The run uses PyTorch's deterministic algorithms
 (``device.deterministic``), so two runs over the same frames write the same
 files, unless ``force_realtime`` drops frames by the wall clock.
 """
@@ -61,6 +64,9 @@ def main(argv=None) -> dict:
                     choices=["euroc", "kitti", "tartanair"])
     ap.add_argument("--out", default=".", help="output directory")
     ap.add_argument("--max-frames", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="stereo frames per front-end call (throughput "
+                         "mode; keyframe decisions quantize to chunk ends)")
     ap.add_argument("--viz-every", type=int, default=0, metavar="N",
                     help="every N frames dump the tracked-keypoint overlay "
                          "(viz/track_FFFFFF.png, needs OpenCV) and refresh "
@@ -86,11 +92,18 @@ def main(argv=None) -> dict:
         slam = SlamSystem(params, device=dev)
         n = 0
         dropped: List[float] = []
+        batch = []
         t0 = _time.perf_counter()
         for iml, imr, t in _stream(reader, params.force_realtime,
                                    _time.perf_counter, dropped):
             if params.stereo and imr is not None:
-                slam.process_stereo(iml, imr, t)
+                if args.chunk > 1:
+                    batch.append((iml, imr, t))
+                    if len(batch) >= args.chunk:
+                        slam.process_stereo_chunk(batch)
+                        batch = []
+                else:
+                    slam.process_stereo(iml, imr, t)
             else:
                 slam.process_mono(iml, t)
             n += 1
@@ -116,6 +129,8 @@ def main(argv=None) -> dict:
                       f"{len(slam.map.keyframes)} KFs, {slam.map.n_3d()} "
                       "landmarks", file=sys.stderr)
 
+        if batch:
+            slam.process_stereo_chunk(batch)
         dt = _time.perf_counter() - t0
         os.makedirs(args.out, exist_ok=True)
         slam.write_results(args.out)

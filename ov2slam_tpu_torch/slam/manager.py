@@ -53,6 +53,7 @@ from ov2slam_tpu_torch.ops import mvg
 from ov2slam_tpu_torch.opt import pnp as pnp_mod
 from ov2slam_tpu_torch.opt import posegraph as pg_mod
 from ov2slam_tpu_torch.slam import frontend as fe_mod
+from ov2slam_tpu_torch.slam import graphs as graphs_mod
 from ov2slam_tpu_torch.slam import mapper as mapper_mod
 from ov2slam_tpu_torch.slam.estimator import Estimator
 from ov2slam_tpu_torch.slam.frame import FrameKps
@@ -218,6 +219,8 @@ class SlamSystem:
         # cumulative across resets
         self.loop_events = getattr(self, "loop_events", [])
         self.fe_state: Optional[fe_mod.FEState] = None
+        # the frame step's CUDA graphs (process_stereo_chunk on the card)
+        self._step_graphs = graphs_mod.StepGraphs()
         self.T_cw = np.eye(4, dtype=np.float32)
         self.initialized = False
         self.frame_id = -1
@@ -361,22 +364,85 @@ class SlamSystem:
         return fe_mod.init_fe_state(img, self.kp_cap, p.nklt_pyr_lvl,
                                     p.use_clahe, p.fclahe_val)
 
-    def _frame_step(self, img: torch.Tensor) -> torch.Tensor:
-        """The front end's per-frame device step; returns its (12,) stats
-        vector, still on the device."""
+    def _step_kwargs(self) -> dict:
+        """The frame step's settings (``frontend.frame_step`` keywords)."""
         p = self.params
-        lm_pos, lm_is3d = self.map.device_landmarks()
-        self.fe_state, stats = fe_mod.frame_step(
-            self.fe_state, img, lm_pos, lm_is3d, self.cam_l,
-            levels=p.nklt_pyr_lvl, use_clahe=p.use_clahe,
+        return dict(
+            levels=p.nklt_pyr_lvl, use_clahe=bool(p.use_clahe),
             clahe_clip=p.fclahe_val, nklt_win=p.nklt_win_size,
             nmax_iter=p.nmax_iter, fmax_px_precision=p.fmax_px_precision,
             fmax_fbklt_dist=p.fmax_fbklt_dist, klt_err=p.nklt_err,
-            do_epipolar=p.doepipolar, fransac_err=p.fransac_err,
+            do_epipolar=bool(p.doepipolar), fransac_err=p.fransac_err,
             robust_th2=p.robust_mono_th,
-            n_ransac_hyps=fe_mod.ransac_hyps_of(p), dop3p=p.dop3p,
-            track_from_kf=p.btrack_keyframetoframe)
+            n_ransac_hyps=fe_mod.ransac_hyps_of(p), dop3p=bool(p.dop3p),
+            track_from_kf=bool(p.btrack_keyframetoframe))
+
+    def _frame_step(self, img: torch.Tensor) -> torch.Tensor:
+        """The front end's per-frame device step; returns its (12,) stats
+        vector, still on the device."""
+        lm_pos, lm_is3d = self.map.device_landmarks()
+        self.fe_state, stats = fe_mod.frame_step(
+            self.fe_state, img, lm_pos, lm_is3d, self.cam_l,
+            **self._step_kwargs())
         return stats
+
+    def process_stereo_chunk(self, frames) -> np.ndarray:
+        """Throughput mode: track a list of (iml, imr, time) stereo frames
+        in one front-end call (``frontend.frame_chunk_step``: on the card
+        CUDA-graph replays of the frame step, with only the parallax gate
+        read between frames) and read the chunk's stats once. Keyframe
+        decisions quantize to the chunk's end: a keyframe only on its last
+        frame, committed at once. The JAX package's semantics
+        (``manager.py:517-584``): no late corrections, P3P recovery or
+        relocalization inside a chunk. Until the map is initialized, and
+        for fewer than 2 frames, the frames go through ``process_stereo``.
+        Returns the camera-to-world pose of the last frame."""
+        p = self.params
+        if not self.initialized or len(frames) < 2:
+            T = None
+            for iml, imr, t in frames:
+                T = self.process_stereo(iml, imr, t)
+            return T
+        # finalize anything pending from single-frame mode
+        self.flush()
+        self.frame_id += len(frames)
+        if self.rect_maps is not None:
+            imgs = [self._to_device_u8(self._rectify(f[0], 0)) for f in frames]
+            # the right image is read only at a keyframe, on the last frame:
+            # rectify that one, so stereo matching sees the per-frame path's
+            # geometry
+            imr_last = self._rectify(frames[-1][1], 1)
+        else:
+            imgs = [self._to_device_u8(f[0]) for f in frames]
+            imr_last = frames[-1][1]
+        self._last_imr = imr_last
+        lm_pos, lm_is3d = self.map.device_landmarks()
+        with self.prof.scope("0.Full-Front_End"):
+            self.fe_state, stats = fe_mod.frame_chunk_step(
+                self.fe_state, torch.stack(imgs), lm_pos, lm_is3d, self.cam_l,
+                graphs=self._step_graphs, **self._step_kwargs())
+            stats_np = stats.cpu().numpy()             # (N, 12)
+
+        need_kf = False
+        for j, (_, _, t) in enumerate(frames):
+            row = stats_np[j]
+            pose_ok = row[0] > 0.5
+            if pose_ok:
+                self.T_cw = self._pose_from_stats(row)
+            # the keyframe heuristics on the pre-increment counter, as the
+            # per-frame path decides before it counts the frame
+            need_kf = need_kf or fe_mod.check_new_kf(
+                p, int(row[1]), int(row[2]), float(row[4]),
+                self.frames_since_kf, self.n3d_at_kf, pose_ok,
+                time_since_kf=t - self.kf_time)
+            is_kf = j == len(frames) - 1 and need_kf
+            if is_kf:
+                with self.prof.scope("1.KF_Processing"):
+                    self._create_keyframe(imr_last, t, defer=False)
+            else:
+                self.frames_since_kf += 1
+            self._log_pose(t, is_kf)
+        return self.T_wc()
 
     @staticmethod
     def _stats_np(stats) -> np.ndarray:

@@ -3,7 +3,7 @@ sequence and print its ATE: the cli phase of ``chip_smoke.py`` and its
 reference.
 
     python3 scripts/torch_cli_run.py [--backend jax|torch] [--root DIR]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--chunk N]
 
 The sequence is the first ``CLI_FRAMES`` (120) frames of the hard sequence
 (``scripts/torch_preset_tiers.py``: 752x480, the distorted EuRoC rig,
@@ -18,7 +18,9 @@ not depend on the clock. The CLI (``python -m ov2slam_tpu.run ...
 --no-cache`` with ``--backend jax``, on the CPU; the port's with
 ``--device``) runs as a subprocess; the line printed holds its closing
 line, the rows and the ATE (m, SE(3)-aligned) of its ``ov2slam_traj.txt``.
-``chip_smoke.py`` records the JAX package's ATE as ``REF_CLI_ATE``.
+``--chunk N`` passes ``--chunk N`` to the CLI (``process_stereo_chunk``,
+N stereo frames per call). ``chip_smoke.py`` records the JAX package's ATE
+as ``REF_CLI_ATE`` and, with ``--chunk 8``, ``REF_CLI_CHUNK_ATE``.
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ def main() -> int:
                                    "results (default: a temporary directory)")
     ap.add_argument("--device", default=None,
                     help="the port's --device (default: the first CUDA card)")
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="the CLI's --chunk (stereo frames per call)")
     args = ap.parse_args()
     import torch_preset_tiers as tiers
     with tempfile.TemporaryDirectory() as tmp:
@@ -87,6 +91,8 @@ def main() -> int:
         module = "ov2slam_tpu.run" if args.backend == "jax" else "ov2slam_tpu_torch.run"
         cmd = [sys.executable, "-m", module, str(root / "params.yaml"),
                str(root / "seq"), "--out", str(out)]
+        if args.chunk > 1:
+            cmd += ["--chunk", str(args.chunk)]
         if args.backend == "jax":
             cmd.append("--no-cache")
         elif args.device:
@@ -98,7 +104,7 @@ def main() -> int:
             return res.returncode
         rows, ate = trajectory_ate(str(out / "ov2slam_traj.txt"), stamps, gt)
         print(json.dumps(dict(backend=args.backend, tier=TIER,
-                              frames=CLI_FRAMES,
+                              frames=CLI_FRAMES, chunk=args.chunk,
                               rows=rows, ate=ate,
                               cli=res.stdout.strip().splitlines()[0])))
     return 0

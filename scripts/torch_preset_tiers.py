@@ -2,7 +2,8 @@
 JAX package, and print one JSON line per tier.
 
     python3 scripts/torch_preset_tiers.py [--backend torch|jax]
-        [--device cuda|cpu] [--frames 120] [--tiers NAME,NAME] [--out FILE]
+        [--device cuda|cpu] [--frames 120] [--tiers NAME,NAME] [--chunk N]
+        [--out FILE]
 
 Tiers (``TIERS``): each is a shipped preset file,
 ``parameters_files/<tier>/euroc/euroc_<mode>.yaml``, with only the camera
@@ -20,6 +21,11 @@ loop detector scaled to the sequence's ~50 keyframes as
 ``scripts/hard_bench.py`` scales it (``LC_DETECTOR``). ``kf2f`` is
 ``chip_smoke.py``'s 60-frame synthetic stereo slice
 (``tests/synthetic_np.py``, step 0.03 m) with ``btrack_keyframetoframe: 1``.
+``bench`` is ``bench.py``'s surface: 120 frames of the same sequence with
+``tests/synthetic.py``'s ``slam_params_dict()`` as it is. With ``--chunk
+N`` the stereo tiers feed ``process_stereo_chunk`` N frames at a time (the
+throughput mode; keyframes only on a chunk's last frame), through either
+package.
 
 The ``oab_*`` runs are the out-and-back world of ``tests/test_loopclosing.py``
 (``tests/loop_synthetic_np.py``: 100 frames, a wall at z = 2.5 m, the loop
@@ -73,6 +79,7 @@ TIERS = {
     "accurate_stereo_rect": ("accurate", "stereo",
                              {"bdo_stereo_rect": 1, "buse_loop_closer": 0}),
     "kf2f": None,
+    "bench": None,
     "accurate_stereo": ("accurate", "stereo", {}),
 }
 # scripts/hard_bench.py's loop detector for the ~50-keyframe sequence
@@ -85,6 +92,7 @@ OAB = {
 }
 KIDNAP_HALF, KIDNAP_VIEW = 30, 6
 KF2F_FRAMES, KF2F_STEP, KF2F_YAW = 60, 0.03, 0.0015
+BENCH_FRAMES = 120
 _CAL_KEYS = ("T_left_right", "body_T_cam0", "body_T_cam1")
 
 
@@ -95,7 +103,8 @@ def tier_dict(name: str) -> dict:
     from ov2slam_tpu_torch.config import load_opencv_yaml
     if TIERS[name] is None:
         d = syn.slam_params_dict()
-        d["btrack_keyframetoframe"] = 1
+        if name == "kf2f":
+            d["btrack_keyframetoframe"] = 1
         return d
     tier, mode, overrides = TIERS[name]
     path = ROOT / "parameters_files" / tier / "euroc" / f"euroc_{mode}.yaml"
@@ -138,9 +147,11 @@ def hard_frames(n: int, workers: int = None):
     return list(L), list(R), np.stack(gt)
 
 
-def kf2f_frames():
+def kf2f_frames(n: int = KF2F_FRAMES):
+    """(left, right, gt positions) of the synthetic slice (the kf2f and,
+    with n = BENCH_FRAMES, the bench tier)."""
     import synthetic_np as syn
-    fl, fr, gt = syn.render_sequence(n_frames=KF2F_FRAMES, step=KF2F_STEP,
+    fl, fr, gt = syn.render_sequence(n_frames=n, step=KF2F_STEP,
                                      yaw_rate=KF2F_YAW)
     return fl, fr, np.stack([T[:3, 3] for T in gt])
 
@@ -166,24 +177,33 @@ def times_ate(times, positions, gt: np.ndarray, mono: bool) -> float:
     return ate_rmse(est[ok], gt[ok], with_scale=mono)
 
 
-def run_tier(slam, frames, mono: bool, call=None, sync=None) -> dict:
+def run_tier(slam, frames, mono: bool, call=None, sync=None,
+             chunk: int = 1) -> dict:
     """Drive `slam` over frames = (left, right, gt), then flush. `call(i,
-    fn)` wraps each frame's call (default: fn()); `sync()` waits for the
-    device before the clock is read. Returns the tier's numbers."""
+    fn)` wraps each call (default: fn()): each frame's, or with chunk > 1
+    (stereo) each ``process_stereo_chunk`` call's, i its first frame;
+    `sync()` waits for the device before the clock is read. Returns the
+    tier's numbers (fps after the first call)."""
     L, R, gt = frames
     call = call or (lambda i, fn: fn())
     sync = sync or (lambda: None)
     depth, t_first = 0, None
+    step = chunk if chunk > 1 and not mono else 1
     t0 = time.perf_counter()
-    for i in range(len(gt)):
+    for i in range(0, len(gt), step):
         if mono:
             call(i, lambda: slam.process_mono(L[i], i * FRAME_DT))
+        elif step > 1:
+            call(i, lambda: slam.process_stereo_chunk(
+                [(L[j], R[j], j * FRAME_DT)
+                 for j in range(i, min(i + step, len(gt)))]))
         else:
             call(i, lambda: slam.process_stereo(L[i], R[i], i * FRAME_DT))
         depth = max(depth, len(slam._inflight))
         if i == 0:
             sync()
             t_first = time.perf_counter()
+            n_first = min(step, len(gt))
     slam.flush()
     sync()
     t_end = time.perf_counter()
@@ -192,7 +212,7 @@ def run_tier(slam, frames, mono: bool, call=None, sync=None) -> dict:
         ate=trajectory_ate(slam.logger, gt, mono), frames=n,
         logged=len(slam.logger.times), keyframes=len(slam.map.keyframes),
         landmarks=int(slam.map.n_3d()), max_inflight=depth,
-        seconds=t_end - t0, fps=(n - 1) / max(t_end - t_first, 1e-9),
+        seconds=t_end - t0, fps=(n - n_first) / max(t_end - t_first, 1e-9),
         initialized=bool(slam.initialized))
     if slam.loopcloser is not None or slam.params.do_full_ba:
         row.update(final_passes(slam, gt, mono, sync))
@@ -313,6 +333,8 @@ def main() -> int:
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--frames", type=int, default=120)
     ap.add_argument("--tiers", default=",".join(list(TIERS) + list(OAB)))
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="stereo frames per process_stereo_chunk call")
     ap.add_argument("--out", type=Path, help="also append the lines here")
     args = ap.parse_args()
     names = args.tiers.split(",")
@@ -338,11 +360,13 @@ def main() -> int:
             else:
                 n = HARD_N if name == "accurate_stereo" else args.frames
                 frames = (tuple(x[:n] for x in hard) if TIERS[name]
-                          else kf2f_frames())
+                          else kf2f_frames(BENCH_FRAMES if name == "bench"
+                                           else KF2F_FRAMES))
                 slam = make_system(args.backend, d, args.device,
                                    LC_DETECTOR if d.get("buse_loop_closer") else None)
-                row = run_tier(slam, frames, bool(d.get("mono")), sync=sync)
-        row = dict(tier=name, backend=args.backend, **row)
+                row = run_tier(slam, frames, bool(d.get("mono")), sync=sync,
+                               chunk=args.chunk)
+        row = dict(tier=name, backend=args.backend, chunk=args.chunk, **row)
         if ops:
             row["nondeterministic_ops"] = sorted(ops)
         line = json.dumps(row)

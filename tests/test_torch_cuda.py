@@ -523,6 +523,44 @@ def test_cli_runs_on_the_card_by_default(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_frame_step_graph_replay_equals_eager(cuda):
+    """slam/graphs.py: one replay of the captured frame step (gate read,
+    the filter's graph when it opens) from a system's state equals the
+    eager frame_step from the same state and generator state: the same
+    keypoint mask, stats and pose within 1e-5; on the next frame (gate
+    shut) and four frames on (gate open)."""
+    from ov2slam_tpu_torch.config import SlamParams
+    from ov2slam_tpu_torch.slam import frontend as fe
+    from ov2slam_tpu_torch.slam import graphs
+    from ov2slam_tpu_torch.slam.manager import SlamSystem
+    fl, fr, _ = synp.render_sequence(n_frames=8, step=0.05)
+    slam = SlamSystem(SlamParams.from_dict(synp.slam_params_dict()), device=cuda)
+    for i in range(3):
+        slam.process_stereo(fl[i], fr[i], i * 0.05)
+    st, kw = slam.fe_state, slam._step_kwargs()
+    lm = slam.map.device_landmarks()
+    cache = graphs.StepGraphs()
+    opened = []
+    for j in (3, 7):
+        img = slam._to_device_u8(fl[j])
+        g0 = st.gen.get_state()
+        new_e, s_e = fe.frame_step(st, img, *lm, slam.cam_l, **kw)
+        g_eager = st.gen.get_state()
+        st.gen.set_state(g0)
+        new_g, s_g = cache.run(st, img[None], *lm, slam.cam_l, kw)
+        torch.cuda.synchronize()
+        # the replays drew as many samples as the eager step
+        assert torch.equal(st.gen.get_state(), g_eager)
+        opened.append(cache.last.replays.get("filter", 0))
+        assert torch.equal(new_g.kps.valid, new_e.kps.valid)
+        np.testing.assert_allclose(s_g[0].cpu().numpy(), s_e.cpu().numpy(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(new_g.R_cw.cpu().numpy(),
+                                   new_e.R_cw.cpu().numpy(), atol=1e-5)
+    assert len(cache.graphs) == 1 and opened == [0, 1], opened
+
+
+@pytest.mark.cuda
 def test_segment_sum_repeats_on_card(cuda):
     """The ordered segment sum gives the same bits in 10 calls on the card
     (index_add_'s atomics need not), and the CPU's sums within float32
@@ -541,3 +579,29 @@ def test_segment_sum_repeats_on_card(cuda):
         0, idx, vals.double())
     mag = torch.zeros_like(ref).index_add_(0, idx, vals.double().abs())
     assert ((outs[0].cpu().double() - ref).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A frame step that cannot be captured (a host read inside it) makes
+    frame_chunk_step raise on the card: nothing runs the eager step in its
+    place."""
+    from ov2slam_tpu_torch.config import SlamParams
+    from ov2slam_tpu_torch.slam import frontend as fe
+    from ov2slam_tpu_torch.slam.manager import SlamSystem
+    fl, fr, _ = synp.render_sequence(n_frames=4, step=0.05)
+    slam = SlamSystem(SlamParams.from_dict(synp.slam_params_dict()), device=cuda)
+    slam.process_stereo(fl[0], fr[0], 0.0)
+    real_back = fe.step_back
+
+    def reading_back(*a, **k):
+        state, stats = real_back(*a, **k)
+        float(stats[0])                 # a host sync: not capturable
+        return state, stats
+
+    monkeypatch.setattr(fe, "step_back", reading_back)
+    imgs = torch.stack([slam._to_device_u8(f) for f in fl[1:3]])
+    with pytest.raises(RuntimeError):
+        fe.frame_chunk_step(slam.fe_state, imgs, *slam.map.device_landmarks(),
+                            slam.cam_l, **slam._step_kwargs())
+    torch.cuda.synchronize()
