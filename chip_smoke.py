@@ -82,11 +82,11 @@ Phases (any failure raises; nothing falls back to the CPU):
    runs under PyTorch's deterministic algorithms
    (``torch_preset_tiers.deterministic``; ``CUBLAS_WORKSPACE_CONFIG`` is
    set before the card is first used), so that its ATE repeats from run to
-   run on the card. Phases 1-10, ``accurate_stereo``, phase 12 and phase
-   13 (a)-(b) run alone, one after the other, so their times stay
-   comparable; the four out-and-back runs come last, as processes of their
-   own (``--loop-run NAME``) started together beside phase 13 (c), so
-   their host times are not clean timings;
+   run on the card. Phases 1-10, ``accurate_stereo``, phase 12, phase
+   13 (a)-(b) and phase 14 (a)-(b) run alone, one after the other, so
+   their times stay comparable; the four out-and-back runs come last, as
+   processes of their own (``--loop-run NAME``) started together beside
+   phases 13 (c) and 14 (c), so their host times are not clean timings;
 12. cli: ``python -m ov2slam_tpu_torch.run``'s ``main``, called in this
    process with no ``--device`` (the card), over the first ``CLI_FRAMES``
    frames of the hard sequence written as an EuRoC ASL tree
@@ -127,7 +127,20 @@ Phases (any failure raises; nothing falls back to the CPU):
    trajectories equal element for element; then once under
    ``torch.use_deterministic_algorithms(True)`` without ``warn_only``,
    which raises on any operation without a deterministic version. (c) runs
-   beside the out-and-back runs of phase 11.
+   beside the out-and-back runs of phase 11;
+14. sharded: the multi-device path (``parallel/sharded.py``) on virtual
+   meshes on the card. (a) ``accurate_stereo_nolc``'s last local BA
+   problem (captured in phase 9) solved on ``SHARDS`` shards: each solve
+   repeats bit for bit and equals ``solve_ba`` within the JAX package's
+   sharded tolerances; host ms of single and ``BA_TIMED_SHARDS`` shards in
+   turns; (b) ``essential_ransac_sharded`` on the card against the CPU on
+   the same per-shard indices: inliers equal on every point; (c)
+   ``accurate_stereo_rect`` through ``SlamSystem(mesh=...)`` on
+   ``TIER_SHARDS`` shards under phase 10's checks, each ATE within 1.5x +
+   5 mm of the JAX package's at the same ``n_devices`` on the CPU
+   (``REF_SHARDED_ATE``), and the ATE spread across shard counts (ROADMAP
+   C/R6); (d) with more than one card, (a) over distinct cards. (c) runs
+   beside the out-and-back runs of phase 11, after 13 (c).
 
 The hard sequence is rendered once, at the start, by worker processes.
 
@@ -175,9 +188,12 @@ from ov2slam_tpu_torch.io.trajectories import ate_rmse  # noqa: E402
 from ov2slam_tpu_torch.ops import _build, klt, lk  # noqa: E402
 from ov2slam_tpu_torch.ops import image as im  # noqa: E402
 from ov2slam_tpu_torch.ops import mvg  # noqa: E402
+from ov2slam_tpu_torch.opt import ba as ba_mod  # noqa: E402
+from ov2slam_tpu_torch.parallel import sharded  # noqa: E402
 from ov2slam_tpu_torch.slam import frontend as fe_mod  # noqa: E402
 from ov2slam_tpu_torch.slam import graphs as graphs_mod  # noqa: E402
 from ov2slam_tpu_torch.slam import mapper as mapper_mod  # noqa: E402
+from ov2slam_tpu_torch.slam.estimator import Estimator  # noqa: E402
 from ov2slam_tpu_torch.slam.manager import SlamSystem  # noqa: E402
 sys.path.insert(0, str(ROOT / "scripts"))
 import klt_inputs  # noqa: E402
@@ -264,6 +280,23 @@ REF_CHUNK_ATE = 0.0028613772975224585
 REF_CLI_CHUNK_ATE = 0.007055916346033503
 GRAPH_TOL = 1e-5
 TIMED_FROM, TIMED_TO = 16, 64
+# the sharded phase: a local BA problem of accurate_stereo_nolc (its last,
+# captured in phase 9) solved on virtual meshes of SHARDS shards on the card,
+# held to the single-device solve as tests/test_sharded.py holds the JAX
+# package's (poses BA_POSE_TOL, landmarks BA_LM_TOL m, BA_INL_AGREE of the
+# inliers) and repeated bit for bit; host ms of single and BA_TIMED_SHARDS
+# shards in BA_TURNS turns; the sharded RANSAC (RANSAC_SHARDS x
+# RANSAC_HYPS hypotheses) on the card against the CPU on the same indices;
+# then the rect tier on TIER_SHARDS virtual shards, each ATE held to the JAX
+# package's at the same n_devices on the CPU
+# (`python3 scripts/torch_order_probe.py --backend jax --tier
+# accurate_stereo_rect --n-devices 0,2,4,8`, 8 virtual CPU devices)
+SHARDS, BA_TIMED_SHARDS, BA_TURNS = (2, 4, 8), 4, 3
+BA_POSE_TOL, BA_LM_TOL, BA_INL_AGREE = 1e-4, 1e-3, 0.99
+RANSAC_SHARDS, RANSAC_HYPS = 4, 128
+TIER_SHARDS = (4, 8)
+REF_SHARDED_ATE = {("accurate_stereo_rect", 4): 0.013126949970873455,
+                   ("accurate_stereo_rect", 8): 0.01214081804701655}
 # the loop phase: the out-and-back runs of scripts/torch_preset_tiers.py and
 # their gates (tests/test_loopclosing.py's)
 LOOP_RUNS = ("oab_stereo", "oab_stereo_rt", "oab_mono", "oab_kidnap")
@@ -728,6 +761,22 @@ def recording_essential_ransac(calls: list):
         mvg.essential_ransac = real
 
 
+@contextlib.contextmanager
+def recording_local_ba(solves: list):
+    """Record every local BA solve of the estimator (``Estimator._solve``)
+    as (problem, solver settings), single-device or sharded."""
+    real = Estimator._solve
+
+    def rec(self, prob, max_iters):
+        solves.append((prob, self.solver_settings(max_iters)))
+        return real(self, prob, max_iters)
+    Estimator._solve = rec
+    try:
+        yield
+    finally:
+        Estimator._solve = real
+
+
 def ransac_pair(dev):
     """The port's own correspondences on a rendered pair 4 steps apart: the
     stereo system's first keyframe on frame 0, then tracking to frame 4
@@ -985,14 +1034,19 @@ def counting_stereo_kf_steps(calls: list):
         mapper_mod.kf_step = real
 
 
-def phase_tiers(tag: str, dev, names, hard):
+def phase_tiers(tag: str, dev, names, hard, shards: int = 0,
+                captured: dict = None):
     """Each tier of `names` through SlamSystem on the card, as
     scripts/torch_preset_tiers.py runs it, with this smoke's checks, under
     PyTorch's deterministic algorithms, as the CLI runs (without them the
     local BA's scatter-adds sum in another order in every run, and a tier's
     ATE moves from run to run: on an NVIDIA H100 80GB HBM3 at 700 W,
     ``accurate_stereo_rect`` read 0.0106-0.0120 m in seven of eight runs
-    and 0.0376 m in the eighth, which took one keyframe more).
+    and 0.0376 m in the eighth, which took one keyframe more). With
+    `shards`, each system's local BA runs on a virtual mesh of that many
+    shards on the card, and the ATE is held to the JAX package's at the
+    same n_devices (``REF_SHARDED_ATE``). With `captured`, the last local
+    BA problem of each tier and its solver settings are kept there.
     Returns the launches of both kernels over the phase."""
     total = {"klt_track": 0, "lk_iterate": 0}
     rows = {}
@@ -1000,7 +1054,8 @@ def phase_tiers(tag: str, dev, names, hard):
         d = tiers.tier_dict(name)
         mono = bool(d.get("mono"))
         frames = hard if tiers.TIERS[name] else tiers.kf2f_frames()
-        slam = SlamSystem(SlamParams.from_dict(d), device=dev)
+        mesh = sharded.make_mesh(devices=[dev] * shards) if shards else None
+        slam = SlamSystem(SlamParams.from_dict(d), device=dev, mesh=mesh)
         syncs, per_call, stereo_kf = collections.Counter(), [], []
 
         def call(i, fn):
@@ -1009,19 +1064,24 @@ def phase_tiers(tag: str, dev, names, hard):
             per_call.append(klt.LAUNCHES - k0 - (len(stereo_kf) - s0))
 
         klt.LAUNCHES = lk.LAUNCHES = 0
-        gate = []
+        gate, solves = [], []
         with tiers.deterministic(set()), counting_stereo_kf_steps(stereo_kf), \
-                recording_essential_ransac(gate):
+                recording_essential_ransac(gate), recording_local_ba(solves):
             row = tiers.run_tier(slam, frames, mono, call=call,
                                  sync=torch.cuda.synchronize)
         total["klt_track"] += klt.LAUNCHES
         total["lk_iterate"] += lk.LAUNCHES
+        if captured is not None and solves:
+            captured[name] = solves[-1]
         n = row["frames"]
         poses = np.stack(slam.logger.poses_wc)
-        ref = REF_ATE[name]
+        ref = REF_SHARDED_ATE[name, shards] if shards else REF_ATE[name]
         pc = slam.pipeline_counts
         rows[name] = row
-        log(f"[{tag}] {name}: ATE {row['ate']:.5f} m (JAX CPU {ref:.5f}, "
+        log(f"[{tag}] {name}"
+            + (f" on {shards} shards ({len(solves)} sharded local BAs)"
+               if shards else "")
+            + f": ATE {row['ate']:.5f} m (JAX CPU {ref:.5f}, "
             f"bound {ATE_SLACK * ref + ATE_ABS:.5f}), {row['fps']:.2f} fps "
             f"over frames 1-{n - 1} with the flush, keyframes "
             f"{row['keyframes']}, landmarks {row['landmarks']}, in-flight "
@@ -1563,6 +1623,115 @@ def phase_repeat(dev, total: dict, hard):
     assert same, "two runs in one process parted"
 
 
+def ba_gaps(a, b, prob) -> tuple:
+    """(pose gap, landmark gap (m), inlier agreement) of two BA results of
+    `prob`, over its valid landmarks and live observations."""
+    n_obs, lm = prob.obs_kf.shape[0], prob.lm_valid.cpu()
+    pose = max(float((a.R - b.R).abs().max()), float((a.t - b.t).abs().max()))
+    lmk = float((a.Xw.cpu() - b.Xw.cpu())[lm].abs().max())
+    agree = float((a.obs_inlier[:n_obs].cpu()
+                   == b.obs_inlier[:n_obs].cpu()).float().mean())
+    return pose, lmk, agree
+
+
+def check_sharded_ba(tag: str, prob, kw: dict, single, mesh) -> None:
+    """The sharded solve of `prob` over `mesh` twice: bit for bit the same,
+    and within the tolerances of the single-device solve."""
+    padded = sharded.pad_observations(prob, len(mesh))
+    r1 = sharded.solve_ba_sharded(padded, mesh, **kw)
+    r2 = sharded.solve_ba_sharded(padded, mesh, **kw)
+    same = all(torch.equal(x, y) for x, y in zip(r1[:7], r2[:7]))
+    pose, lmk, agree = ba_gaps(r1, single, prob)
+    log(f"[sharded] {tag}: {len(mesh)} shards on {sorted({str(d) for d in mesh})}"
+        f": repeats bit for bit {same}; against the single-device solve "
+        f"poses {pose:.3g} apart, landmarks {lmk:.3g} m, inliers agree "
+        f"{agree:.4f}; cost {float(r1.cost0):.2f} -> {float(r1.cost):.2f} "
+        f"(single {float(single.cost):.2f}), {r1.n_iters} iterations")
+    assert same, f"{tag}: two sharded solves parted"
+    assert pose < BA_POSE_TOL and lmk < BA_LM_TOL and agree >= BA_INL_AGREE, (
+        tag, pose, lmk, agree)
+
+
+def phase_sharded(dev, captured: dict):
+    """14 (a), (b), (d). The multi-device path (parallel/sharded.py) on
+    virtual meshes on the card: (a) accurate_stereo_nolc's last local BA
+    problem on SHARDS shards against the single-device solve, host ms in
+    turns; (b) the sharded essential RANSAC on the card against the CPU;
+    (d) (a) over a mesh of distinct cards where there are several."""
+    prob, kw = captured["accurate_stereo_nolc"]
+    single = ba_mod.solve_ba(prob, **kw)
+    log(f"[sharded] accurate_stereo_nolc's last local BA: "
+        f"{prob.R.shape[0]} keyframes, {int(prob.lm_valid.sum())} landmarks,"
+        f" {prob.obs_kf.shape[0]} observations, {kw['method']}, l2_refine "
+        f"{kw['l2_refine']}")
+    for n in SHARDS:
+        check_sharded_ba("(a)", prob, kw, single,
+                         sharded.make_mesh(devices=[dev] * n))
+    mesh = sharded.make_mesh(devices=[dev] * BA_TIMED_SHARDS)
+    padded = sharded.pad_observations(prob, BA_TIMED_SHARDS)
+    ms = {"single": [], "sharded": []}
+    for _ in range(BA_TURNS):
+        ms["single"].append(host_ms(lambda: ba_mod.solve_ba(prob, **kw), 1))
+        ms["sharded"].append(host_ms(
+            lambda: sharded.solve_ba_sharded(padded, mesh, **kw), 1))
+    log(f"[sharded] (a) host ms per solve in turns: single "
+        f"{_ms_summary(ms['single'])}; {BA_TIMED_SHARDS} shards on one card "
+        f"{_ms_summary(ms['sharded'])}")
+
+    # (b) the sharded RANSAC, card against CPU, the same indices per shard
+    pair = ransac_pair(dev)
+    bv_a, bv_b, valid = pair["ess"]
+    gen = torch.Generator().manual_seed(1)
+    idx = [mvg.draw_samples(valid.cpu(), RANSAC_HYPS, 5, gen)
+           for _ in range(RANSAC_SHARDS)]
+    cpu = [x.cpu() for x in (bv_a, bv_b, valid)]
+    rc = sharded.essential_ransac_sharded(
+        *cpu, pair["th"], sharded.make_mesh(RANSAC_SHARDS, device="cpu"),
+        idx=idx)
+    mesh_r = sharded.make_mesh(devices=[dev] * RANSAC_SHARDS)
+    t0 = time.perf_counter()
+    rg = sharded.essential_ransac_sharded(bv_a, bv_b, valid, pair["th"],
+                                          mesh_r, idx=[i.to(dev) for i in idx])
+    torch.cuda.synchronize()
+    r_ms = 1000 * (time.perf_counter() - t0)
+    agree = float((rg.inliers.cpu() == rc.inliers).float().mean())
+    log(f"[sharded] (b) essential_ransac_sharded, {RANSAC_SHARDS} x "
+        f"{RANSAC_HYPS} hypotheses: card {int(rg.n_inliers)} / CPU "
+        f"{int(rc.n_inliers)} inliers, masks agree {agree:.4f}, success "
+        f"{bool(rg.success)} / {bool(rc.success)}; {r_ms:.1f} ms on the card "
+        f"(first call, host clock)")
+    assert agree == 1.0 and bool(rg.success) and bool(rc.success), agree
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        check_sharded_ba("(d)", prob, kw, single,
+                         sharded.make_mesh(min(n_cards, BA_TIMED_SHARDS)))
+    else:
+        log("[sharded] (d) one card: the mesh of distinct cards waits for a "
+            "machine with more than one")
+
+
+def phase_sharded_tier(dev, total: dict, hard, rect_ate: float):
+    """14 (c). The rect tier on TIER_SHARDS virtual shards through
+    SlamSystem(mesh=...), each ATE held to the JAX package's at the same
+    n_devices, and the ATE spread across shard counts with `rect_ate`
+    (phase 10, one device). Runs beside the out-and-back runs: its fps are
+    not clean timings. Adds its launches to `total`."""
+    ates = {0: rect_ate}
+    for n in TIER_SHARDS:
+        t0 = time.perf_counter()
+        launches, rows = phase_tiers("sharded (c)", dev,
+                                     ["accurate_stereo_rect"], hard, shards=n)
+        for k in total:
+            total[k] += launches[k]
+        ates[n] = rows["accurate_stereo_rect"]["ate"]
+        log(f"[sharded] (c) {n} shards: {time.perf_counter() - t0:.1f} s, "
+            f"klt_track {launches['klt_track']}")
+    log(f"[sharded] (c) R6: accurate_stereo_rect ATE by shard count on the "
+        f"card: " + ", ".join(f"{n}: {a:.5f} m" for n, a in sorted(ates.items()))
+        + f"; spread {max(ates.values()) - min(ates.values()):.5f} m")
+
+
 def start_loop_runs():
     """Start the four out-and-back runs, one process each (this script with
     --loop-run NAME), all at once: they share the card and the host, so
@@ -1776,8 +1945,10 @@ def main() -> int:
     launches, frames = phase_slice(dev, seq)
     mono, mono_frames = phase_mono(dev)
     phase_done("slices")
-    presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard)
-    rect, _ = phase_tiers("rect", dev, RECT_TIERS, hard)
+    captured = {}
+    presets, _ = phase_tiers("presets", dev, PRESET_TIERS, hard,
+                             captured=captured)
+    rect, rect_rows = phase_tiers("rect", dev, RECT_TIERS, hard)
     phase_done("preset and rect tiers")
     loop = {"klt_track": 0, "lk_iterate": 0}
     phase_lc_tier(dev, loop, hard_all)
@@ -1791,16 +1962,22 @@ def main() -> int:
         graph_launches = phase_chunk(dev, chunk, seq, cli_root, stamps,
                                      hard[2][:CLI_FRAMES])
     phase_done("chunk (a), (b)")
-    # the out-and-back runs beside 13c, which needs no clean timing
+    phase_sharded(dev, captured)
+    phase_done("sharded (a), (b)")
+    # the out-and-back runs beside 13c and 14c, which need no clean timing
+    sharded_total = {"klt_track": 0, "lk_iterate": 0}
     procs = start_loop_runs()
     try:
         phase_repeat(dev, chunk, hard)
         phase_done("chunk (c)")
+        phase_sharded_tier(dev, sharded_total, hard,
+                           rect_rows["accurate_stereo_rect"]["ate"])
+        phase_done("sharded (c)")
     finally:
         finish_loop_runs(procs, loop)
     phase_done("out-and-back runs")
     launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
-                + cli_total[k] + chunk[k] for k in launches}
+                + cli_total[k] + chunk[k] + sharded_total[k] for k in launches}
     if args.profile:
         phase_compare(dev, frames)
         phase_profile(dev, frames, mono_frames, args.profile, hard)

@@ -234,13 +234,13 @@ class SlamParams:
     kp_capacity: int = 0          # 0 = derive from nbmaxkps, rounded up
     # Fixed landmark / keyframe arena capacities for the map store.
     lm_capacity: int = 1 << 14
-    # Deferred BA writeback and the realtime pipeline depth (force_realtime);
-    # not ported yet, SlamSystem refuses them.
+    # Deferred BA writeback and the realtime pipeline depth (force_realtime).
     async_ba: bool = False
     pipeline_depth: int = 6
     kf_capacity: int = 1 << 11
-    # Multi-device BA mesh in the JAX package (0/1 = single device); the port
-    # runs on one GPU and refuses n_devices > 1.
+    # Local-BA device mesh (0/1 = single device): n > 1 shards the local
+    # BA's observations over n devices of the system's type
+    # (parallel/sharded.py; n virtual shards on the CPU).
     n_devices: int = 0
     # JAX-only: background ahead-of-time compiles (ignored by the port).
     prewarm: bool = True

@@ -15,7 +15,9 @@ so they add exact zeros. The sums are ordered segment sums
 the card and on the CPU.
 
 Landmarks are XYZ (nl=3) or anchored inverse depth (nl=1, with Jacobians
-into the anchor pose block as well — buse_inv_depth).
+into the anchor pose block as well — buse_inv_depth). The observation-
+sharded solve of ``parallel/sharded.py`` runs the same LM / dogleg loop
+with each shard's normal equations built on its own device.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from ov2slam_tpu_torch.core import lie, smallalg
 from ov2slam_tpu_torch.core.lie import SE3
-from ov2slam_tpu_torch.ops.segment import segment_index, segment_sum
+from ov2slam_tpu_torch.ops.segment import (SegmentIndex, segment_index,
+                                            segment_sum)
 from ov2slam_tpu_torch.opt import residuals as res
 from ov2slam_tpu_torch.opt.residuals import Calib
 
@@ -161,14 +164,72 @@ def solve_ba(p: BAProblem, invdepth: bool = True, max_iters: int = 5,
     return out
 
 
+class _Part(NamedTuple):
+    """One observation shard of a solve: its problem, on its own device,
+    with what its normal-equation build needs, fixed over the solve."""
+
+    p: BAProblem
+    th2: torch.Tensor          # (O_k,) chi2 threshold per observation
+    anc_idx: torch.Tensor      # (O_k,) anchor (inverse depth) or observer
+    pose_w: torch.Tensor       # (F,) the lead's pose weights, on p's device
+    lm_w: torch.Tensor         # (L,)
+    seg_hpp: SegmentIndex
+    seg_bp: SegmentIndex
+    seg_lm: SegmentIndex
+    seg_W: SegmentIndex
+
+
+def _part(p: BAProblem, pose_w, lm_w, invdepth: bool, th2_mono: float,
+          th2_stereo: float) -> _Part:
+    """The shard `p` with its segment indices (over the whole problem's F
+    poses and L landmarks)."""
+    dev = p.obs_kf.device
+    F, L = pose_w.shape[0], lm_w.shape[0]
+    anc_idx = p.anchor[p.obs_lm] if invdepth else p.obs_kf
+    hpp_idx, bp_idx = [p.obs_kf * F + p.obs_kf], [p.obs_kf]
+    W_idx = [p.obs_lm * F + p.obs_kf]
+    if invdepth:
+        hpp_idx += [anc_idx * F + anc_idx, p.obs_kf * F + anc_idx,
+                    anc_idx * F + p.obs_kf]
+        bp_idx.append(anc_idx)
+        W_idx.append(p.obs_lm * F + anc_idx)
+    return _Part(p, _th2(p, th2_mono, th2_stereo), anc_idx, pose_w.to(dev),
+                 lm_w.to(dev), segment_index(torch.cat(hpp_idx), F * F),
+                 segment_index(torch.cat(bp_idx), F),
+                 segment_index(p.obs_lm, L),
+                 segment_index(torch.cat(W_idx), L * F))
+
+
+def _sum_shards(outs, lead: torch.device):
+    """Per-shard tuples of tensors summed on the lead device in shard
+    order (the counterpart of the JAX package's ``psum``); one shard is
+    returned as it is."""
+    if len(outs) == 1:
+        return outs[0]
+    acc = tuple(x.to(lead) for x in outs[0])
+    for o in outs[1:]:
+        acc = tuple(a + x.to(lead) for a, x in zip(acc, o))
+    return acc
+
+
 def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
             invdepth: bool, max_iters: int, th2_mono: float,
-            th2_stereo: float, lam0: float, method: str = "lm") -> BAResult:
+            th2_stereo: float, lam0: float, method: str = "lm",
+            shards=None) -> BAResult:
     """One robust-or-L2 LM (or dogleg) run.
 
     The JAX ``while_loop`` exits on ``it < max_iters & ~small`` where
     ``small`` is a tiny step; the state keeps changing after that (damping,
-    trial), so the exit is kept exact here: one host read per iteration."""
+    trial), so the exit is kept exact here: one host read per iteration.
+
+    ``shards`` (the counterpart of the JAX package's ``psum_axis``) is a
+    list of per-shard problems, each on its own device, holding contiguous
+    slices of p's observations and the rest of p: every build issues each
+    shard's normal equations and cost on that shard's device before any is
+    waited on, then sums them on p's device (the lead) in shard order. The
+    Schur solve and every accept/reject run once, on the lead, from the
+    global cost; the new state is copied to each shard's device. The
+    returned obs_inlier is the shards' in observation order."""
     dt = p.t.dtype
     dev = p.t.device
     F = p.R.shape[0]
@@ -176,33 +237,25 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
     nl = 1 if invdepth else 3
     pose_w = p.pose_opt.to(dt)
     lm_w = p.lm_valid.to(dt)
-    th2 = _th2(p, th2_mono, th2_stereo)
-    anc_idx = p.anchor[p.obs_lm] if invdepth else p.obs_kf
-    ff = p.obs_kf * F + p.obs_kf          # flat (F*F) block index
+    parts = [_part(q, pose_w, lm_w, invdepth, th2_mono, th2_stereo)
+             for q in (shards or [p])]
     eyeL = torch.eye(nl, dtype=dt, device=dev)
-    # the normal equations' segment indices, fixed over the solve
-    hpp_idx, bp_idx = [ff], [p.obs_kf]
-    W_idx = [p.obs_lm * F + p.obs_kf]
-    if invdepth:
-        hpp_idx += [anc_idx * F + anc_idx, p.obs_kf * F + anc_idx,
-                    anc_idx * F + p.obs_kf]
-        bp_idx.append(anc_idx)
-        W_idx.append(p.obs_lm * F + anc_idx)
-    seg_hpp = segment_index(torch.cat(hpp_idx), F * F)
-    seg_bp = segment_index(torch.cat(bp_idx), F)
-    seg_lm = segment_index(p.obs_lm, L)
-    seg_W = segment_index(torch.cat(W_idx), L * F)
 
-    def build(R, t, Xw, lam):
-        r, J_obs, J_anc, J_lm, _ = _residuals_all(p, R, t, Xw, lam, invdepth)
+    def on(q: _Part, state):
+        d = q.p.obs_kf.device
+        return tuple(x.to(d) for x in state)
+
+    def build_part(q: _Part, R, t, Xw, lam):
+        sp = q.p
+        r, J_obs, J_anc, J_lm, _ = _residuals_all(sp, R, t, Xw, lam, invdepth)
         if invdepth:
-            J_anc = _anchor_jacobian_fix(p, R, t, J_anc)
-        w, chi2 = _sqrtw(p, r, th2, robust)
-        Jo = J_obs * (w * pose_w[p.obs_kf])[:, None, None]
-        Ja = J_anc * (w * pose_w[anc_idx])[:, None, None]
-        Jl = J_lm * (w * lm_w[p.obs_lm])[:, None, None]
+            J_anc = _anchor_jacobian_fix(sp, R, t, J_anc)
+        w, chi2 = _sqrtw(sp, r, q.th2, robust)
+        Jo = J_obs * (w * q.pose_w[sp.obs_kf])[:, None, None]
+        Ja = J_anc * (w * q.pose_w[q.anc_idx])[:, None, None]
+        Jl = J_lm * (w * q.lm_w[sp.obs_lm])[:, None, None]
         rw = r * w[:, None]
-        cost = _robust_cost(p, chi2, th2, robust)
+        cost = _robust_cost(sp, chi2, q.th2, robust)
 
         JtJ = lambda A, B: torch.einsum("oij,oik->ojk", A, B)  # noqa: E731
         Jtr = lambda A: torch.einsum("oij,oi->oj", A, rw)      # noqa: E731
@@ -213,16 +266,23 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
             hpp_val += [JtJ(Ja, Ja), JtJ(Jo, Ja), JtJ(Ja, Jo)]
             bp_val.append(Jtr(Ja))
             W_val.append(JtJ(Ja, Jl))
-        Hpp = segment_sum(seg_hpp, torch.cat(hpp_val)).reshape(F, F, 6, 6)
-        bp = segment_sum(seg_bp, torch.cat(bp_val))
-        Hll = segment_sum(seg_lm, JtJ(Jl, Jl))
-        bl = segment_sum(seg_lm, Jtr(Jl))
-        W = segment_sum(seg_W, torch.cat(W_val)).reshape(L, F, 6, nl)
+        Hpp = segment_sum(q.seg_hpp, torch.cat(hpp_val)).reshape(F, F, 6, 6)
+        bp = segment_sum(q.seg_bp, torch.cat(bp_val))
+        Hll = segment_sum(q.seg_lm, JtJ(Jl, Jl))
+        bl = segment_sum(q.seg_lm, Jtr(Jl))
+        W = segment_sum(q.seg_W, torch.cat(W_val)).reshape(L, F, 6, nl)
         return Hpp, bp, Hll, bl, W, cost
 
-    def eval_cost(R, t, Xw, lam):
-        r, _, _, _, _ = _residuals_all(p, R, t, Xw, lam, invdepth)
-        return _robust_cost(p, torch.sum(r * r, dim=-1), th2, robust)
+    def build(*state):
+        return _sum_shards([build_part(q, *on(q, state)) for q in parts], dev)
+
+    def cost_part(q: _Part, R, t, Xw, lam):
+        r, _, _, _, _ = _residuals_all(q.p, R, t, Xw, lam, invdepth)
+        return (_robust_cost(q.p, torch.sum(r * r, dim=-1), q.th2, robust),)
+
+    def eval_cost(*state):
+        return _sum_shards([cost_part(q, *on(q, state)) for q in parts],
+                           dev)[0]
 
     def solve_step(Hpp, bp, Hll, bl, W, damp):
         diagL = torch.diagonal(Hll, dim1=-2, dim2=-1)
@@ -298,9 +358,12 @@ def _lm_run(p: BAProblem, R_init, t_init, Xw_init, lam_init, robust: bool,
         cost_f = torch.minimum(cost_trial, cost_best)
 
     # final chi2 / depth-positivity sweep (optimizer.cpp:488-627)
-    r, _, _, _, pos = _residuals_all(p, R_f, t_f, X_f, lam_f, invdepth)
-    chi2 = torch.sum(r * r, dim=-1)
-    inl = p.obs_valid & (chi2 <= th2) & pos
+    def inliers(q: _Part):
+        r, _, _, _, pos = _residuals_all(q.p, *on(q, (R_f, t_f, X_f, lam_f)),
+                                         invdepth)
+        return q.p.obs_valid & (torch.sum(r * r, dim=-1) <= q.th2) & pos
+
+    inl = torch.cat([inliers(q).to(dev) for q in parts])
     if invdepth:
         T_wa = lie.se3_inverse(SE3(R_f[p.anchor], t_f[p.anchor]))
         ilam = 1.0 / torch.where(torch.abs(lam_f) < 1e-9,

@@ -24,8 +24,8 @@ A loop closure drops the pending local BA (its solve predates the
 correction) and folds the query keyframe's correction into the live pose
 and the frames in flight; relocalization starts a new tracking chain
 (``_chain_gen``), so in-flight frames of the lost chain skip their pose
-write. Settings outside the ported paths (``n_devices > 1``) raise
-``NotImplementedError``.
+write. With ``n_devices > 1`` (or a ``mesh=``) every local BA solves
+through the observation-sharded solver of ``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from ov2slam_tpu_torch.ops import image as im_mod
 from ov2slam_tpu_torch.ops import mvg
 from ov2slam_tpu_torch.opt import pnp as pnp_mod
 from ov2slam_tpu_torch.opt import posegraph as pg_mod
+from ov2slam_tpu_torch.parallel import sharded
 from ov2slam_tpu_torch.slam import frontend as fe_mod
 from ov2slam_tpu_torch.slam import graphs as graphs_mod
 from ov2slam_tpu_torch.slam import mapper as mapper_mod
@@ -70,31 +71,24 @@ def _mat_from_quat_np(q: np.ndarray) -> np.ndarray:
     ], np.float32)
 
 
-def unsupported_settings(p: SlamParams):
-    """(setting, ROADMAP item) pairs of `p` outside the ported paths."""
-    checks = [
-        (p.n_devices and p.n_devices > 1, "n_devices > 1",
-         "not ported: one GPU"),
-    ]
-    return [(name, item) for cond, name, item in checks if cond]
-
-
 class SlamSystem:
-    """Stereo or mono SLAM pipeline on one torch device."""
+    """Stereo or mono SLAM pipeline on one torch device (its local BA
+    optionally sharded over a device mesh)."""
 
     KF_COMMIT_LAG = 4     # frames between kf_step dispatch and registry commit
     LMM_LAG = 2           # frames between local-map-match dispatch and merge
     BA_LAG = 4            # frames between BA dispatch and writeback
 
-    def __init__(self, params: SlamParams, device=None):
-        bad = unsupported_settings(params)
-        if bad:
-            raise NotImplementedError(
-                "ov2slam_tpu_torch: not ported: "
-                + "; ".join(f"{n} (ROADMAP queue {i})" for n, i in bad))
+    def __init__(self, params: SlamParams, device=None, mesh=None):
         device_mod.set_precision_policy()
         self.params = p = params
         self.device = device_mod.resolve_device(device)
+        # the device mesh of the sharded local BA (n_devices > 1), built
+        # once on the system's device type and shared by every Estimator
+        # the resets create; `mesh` gives one (a virtual mesh on one card)
+        if mesh is None and p.n_devices > 1:
+            mesh = sharded.make_mesh(p.n_devices, device=self.device.type)
+        self.mesh = mesh
         self.cam_l = Camera.make(
             p.cam_left_model, p.fxl, p.fyl, p.cxl, p.cyl,
             [p.k1l, p.k2l, p.p1l, p.p2l], p.img_left_w, p.img_left_h)
@@ -211,7 +205,7 @@ class SlamSystem:
                             device=self.device)
         self.estimator = Estimator(p, fe_mod.calib_of(self.cam_l),
                                    fe_mod.calib_of(self.cam_r), self.T_rl,
-                                   device=self.device)
+                                   device=self.device, mesh=self.mesh)
         self.loopcloser = (LoopCloser(p, self.cam_l, self.estimator,
                                       device=self.device)
                            if p.buse_loop_closer else None)

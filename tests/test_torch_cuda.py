@@ -21,7 +21,8 @@ filters also run on the card, in another summation order). RANSACs on the
 card vs the CPU with the same sample indices (cuSOLVER and LAPACK round the
 batched solves differently, so valid 5-point models may differ in which
 roots they hold): inlier masks equal on 99%, rotation within 1e-3 rad,
-translation direction within 1e-2 rad. CLAHE: 1e-2 gray levels.
+translation direction within 1e-2 rad. CLAHE: 1e-2 gray levels. The
+sharded local BA on a virtual mesh on the card repeats bit for bit.
 """
 
 import numpy as np
@@ -476,6 +477,29 @@ def test_solve_ba_global_on_card_matches_cpu(cuda, l2_refine):
     np.testing.assert_allclose(og.lam.cpu().numpy(), oc.lam.numpy(), rtol=1e-3)
     np.testing.assert_allclose(float(og.cost), float(oc.cost), rtol=1e-4)
     assert (og.obs_inlier.cpu() == oc.obs_inlier).all()
+
+
+@pytest.mark.cuda
+def test_sharded_ba_on_card_repeats_and_matches_cpu(cuda):
+    """The observation-sharded local BA on a virtual 4-shard mesh on the
+    card: two solves equal bit for bit, and within the sharded parity
+    tolerances (tests/test_torch_sharded.py) of the same solve on 4 CPU
+    shards: poses 1e-4, landmarks 1e-3 m, >= 99% of inliers equal."""
+    from ov2slam_tpu_torch.parallel import sharded
+    prob = sharded.pad_observations(_ba_problem(5), 4)
+    kw = dict(max_iters=5, l2_refine=True, l2_iters=3)
+    oc = sharded.solve_ba_sharded(prob, sharded.make_mesh(4, device="cpu"),
+                                  **kw)
+    mesh = sharded.make_mesh(devices=[cuda] * 4)
+    og = sharded.solve_ba_sharded(prob, mesh, **kw)
+    og2 = sharded.solve_ba_sharded(prob, mesh, **kw)
+    assert og.R.device == cuda
+    assert all(torch.equal(a, b) for a, b in zip(og[:7], og2[:7]))
+    assert float(og.cost) < float(og.cost0)
+    np.testing.assert_allclose(og.R.cpu().numpy(), oc.R.numpy(), atol=1e-4)
+    np.testing.assert_allclose(og.t.cpu().numpy(), oc.t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(og.Xw.cpu().numpy(), oc.Xw.numpy(), atol=1e-3)
+    assert (og.obs_inlier.cpu() == oc.obs_inlier).float().mean() >= 0.99
 
 
 @pytest.mark.cuda

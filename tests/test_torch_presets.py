@@ -19,7 +19,7 @@ from ov2slam_tpu.config import SlamParams as JParams
 from ov2slam_tpu.config import load_opencv_yaml as j_load
 from ov2slam_tpu_torch.config import SlamParams
 from ov2slam_tpu_torch.config import load_opencv_yaml
-from ov2slam_tpu_torch.slam.manager import SlamSystem, unsupported_settings
+from ov2slam_tpu_torch.slam.manager import SlamSystem
 
 import torch_parity  # noqa: F401  (caps torch threads)
 
@@ -58,8 +58,8 @@ def test_preset_builds_or_names_only_a5(preset):
     """Every preset builds (the name dates from when the loop-closing
     presets raised naming ROADMAP item A5)."""
     p = SlamParams.from_yaml(os.path.join(ROOT, preset))
-    assert unsupported_settings(p) == []
     s = SlamSystem(p, device="cpu")
+    assert s.mesh is None
     assert s.params.force_realtime
     assert (s.loopcloser is not None) == bool(p.buse_loop_closer)
     if p.buse_loop_closer:
@@ -68,9 +68,9 @@ def test_preset_builds_or_names_only_a5(preset):
 
 def test_half_the_presets_run_unchanged():
     """All 24 presets run unchanged now (12 did before loop closing was
-    ported)."""
+    ported): every setting is ported, and none asks for a device mesh."""
     ok = [f for f in PRESETS
-          if not unsupported_settings(SlamParams.from_yaml(os.path.join(ROOT, f)))]
+          if SlamParams.from_yaml(os.path.join(ROOT, f)).n_devices <= 1]
     assert len(ok) == 24
     # half of them close loops: the accurate and average stereo ones
     lc = [f for f in PRESETS

@@ -276,26 +276,26 @@ UNSUPPORTED = {
 }
 
 
-# settings that were outside the stereo slice and are ported since
+# settings that were outside the stereo slice and are ported since: all
 PORTED = ("mono", "use_clahe", "doepipolar", "dop3p", "btrack_keyframetoframe",
           "force_realtime", "async_ba", "bdo_stereo_rect", "bdo_undist",
           "use_fast", "use_shi_tomasi", "use_dogleg", "buse_loop_closer",
-          "do_full_ba")
+          "do_full_ba", "n_devices")
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_settings_outside_the_slice_raise(name):
-    """Every setting outside the ported paths raises naming its ROADMAP
-    item; those ported since (PORTED) now build a system."""
+    """Every setting that was outside the first slice (and raised naming
+    its ROADMAP item) is ported now (PORTED) and builds a system;
+    n_devices = 4 builds it with a mesh of 4 CPU shards."""
+    assert name in PORTED
     d = slice_params()
     d.update(UNSUPPORTED[name])
-    if name in PORTED:
-        s = SlamSystem(SlamParams.from_dict(d), device="cpu")
-        assert getattr(s.params, name)
-        assert (s.loopcloser is not None) == (name == "buse_loop_closer")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlamSystem(SlamParams.from_dict(d), device="cpu")
+    s = SlamSystem(SlamParams.from_dict(d), device="cpu")
+    assert getattr(s.params, name)
+    assert (s.loopcloser is not None) == (name == "buse_loop_closer")
+    mesh = (torch.device("cpu"),) * 4 if name == "n_devices" else None
+    assert s.mesh == mesh and s.estimator.mesh == mesh
 
 
 def test_slice_settings_accepted():
