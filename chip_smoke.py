@@ -140,12 +140,34 @@ Phases (any failure raises; nothing falls back to the CPU):
    5 mm of the JAX package's at the same ``n_devices`` on the CPU
    (``REF_SHARDED_ATE``), and the ATE spread across shard counts (ROADMAP
    C/R6); (d) with more than one card, (a) over distinct cards. (c) runs
-   beside the out-and-back runs of phase 11, after 13 (c).
+   beside the out-and-back runs of phase 11, after 13 (c);
+15. bench and rigs: (a) ``scripts/torch_bench.py``'s main (``bench.py``'s
+   surface at full width, ``CHUNK_FRAMES`` frames) frame by frame and in
+   chunks of ``CHUNK``, ``BENCH_PASSES`` timed passes each in this process:
+   its JSON line (printed on a line of its own), each ATE within 1.5x + 5 mm
+   of the JAX package's ``bench.py`` on the CPU (``REF_BENCH_ATE``), the
+   card's name and power limit and the per-stage device ms in ``extra``
+   with no TPU figure, one ``klt_track`` launch per tracking call and one
+   graph replay launch per chunked frame. (a) runs beside (c) alone,
+   before the out-and-back runs. (b) ``kitti_stereo`` (1241x376, the KITTI 00-02
+   preset with ``bdo_stereo_rect``), ``tartanair_stereo`` (640x480, no
+   distortion) and ``average_stereo``, each with its loop closer as shipped,
+   over the first ``TIER_FRAMES`` frames of their rigs' hard sequences
+   under phase 9's checks, live and ``wlc_opt`` ATEs held to ``REF_ATE``;
+   then ``klt_track`` against ``fb_klt_tracking_plain`` on the KITTI rig's
+   pyramid (level widths 1241, 621, 311, 156) and its device time beside
+   its bound. (c) ``accurate_mono_lc`` (the mono preset with the loop closer
+   on) over all 1000 frames under phase 11's checks: a loop must close,
+   live and ``wlc_opt`` Sim(3) ATEs within their bounds. (b) and (c) run
+   in processes of their own (``--tier-run``, the EuRoC frames mapped from
+   ``.npy`` files the smoke writes): (c) starts with (a), (b) with the
+   out-and-back runs.
 
 The hard sequence is rendered once, at the start, by worker processes.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the ``kernels`` line sums them over every path.
+after; the ``kernels`` line sums them over every path (phase 15 (a): over
+its timed passes).
 The last three lines of standard output are the card's ``nvidia-smi`` name
 and power limit, a JSON object describing the kernels (``klt_track`` also
 with the launches its graph replays made, ``graph_replay_launches``), and
@@ -246,7 +268,15 @@ REF_ATE = {"fast_stereo": 0.011895194593247387,
            "accurate_stereo_rect": 0.013126949970873455,
            "kf2f": 0.0005095717850380572,
            "accurate_stereo": REF_LC_ATE,
-           "accurate_stereo_wlc_opt": REF_LC_WLC_OPT}
+           "accurate_stereo_wlc_opt": REF_LC_WLC_OPT,
+           "kitti_stereo": 0.019862658057194914,
+           "kitti_stereo_wlc_opt": 0.01709556665262417,
+           "tartanair_stereo": 0.005888699105020849,
+           "tartanair_stereo_wlc_opt": 0.0055777191946200155,
+           "average_stereo": 0.016601479208192875,
+           "average_stereo_wlc_opt": 0.013120911765358153,
+           "accurate_mono_lc": 0.05873727709656155,
+           "accurate_mono_lc_wlc_opt": 0.04406910692129278}
 ATE_SLACK, ATE_ABS = 1.5, 0.005
 # the cli phase: the first CLI_FRAMES frames of the hard sequence as an
 # EuRoC tree, accurate_stereo_nolc as a YAML preset
@@ -307,6 +337,23 @@ OAB_ATE, OAB_MAX_STEP, RELOC_ERR, MIN_INLIERS = 0.08, 0.25, 0.1, 30
 # keyframe moves by about n / (n + 1) of the jump (n >= 2); a correction
 # that did nothing moves it by 0
 MOVE_SHARE = 0.5
+# the bench and rigs phase: scripts/torch_bench.py's main on bench.py's
+# surface (CHUNK_FRAMES frames of the synthetic sequence) frame by frame and
+# in chunks of CHUNK, BENCH_PASSES timed passes each, each ATE held to the
+# JAX package's bench.py on the CPU (`JAX_PLATFORMS=cpu BENCH_PASSES=1
+# BENCH_ACCOUNTING=0 python3 bench.py`, with BENCH_CHUNK=8 for the chunked
+# line; bench.py prints it to 5 decimals); the KITTI, TartanAir and average
+# stereo tiers (loop closer on as shipped) over the first TIER_FRAMES frames
+# of their rigs' hard sequences, and accurate_mono_lc over all 1000 frames,
+# which must close a loop (REF_ATE, from scripts/torch_preset_tiers.py
+# --backend jax); klt_track against its plain version on the KITTI rig's
+# frames 0-1 at the KITTI preset's kp_cap, pyramid levels and grid cell
+BENCH_PASSES = 3
+REF_BENCH_ATE = {0: 0.00234, CHUNK: 0.0028}
+RIG_TIERS = ("kitti_stereo", "tartanair_stereo", "average_stereo")
+MONO_LC = "accurate_mono_lc"
+KITTI_KLT_N, KITTI_LEVELS, KITTI_CELL = 448, 3, 35
+LC_MIN_INLIERS = {"accurate_stereo": MIN_INLIERS, MONO_LC: 1}
 
 
 def log(msg: str):
@@ -1046,14 +1093,19 @@ def phase_tiers(tag: str, dev, names, hard, shards: int = 0,
     `shards`, each system's local BA runs on a virtual mesh of that many
     shards on the card, and the ATE is held to the JAX package's at the
     same n_devices (``REF_SHARDED_ATE``). With `captured`, the last local
-    BA problem of each tier and its solver settings are kept there.
-    Returns the launches of both kernels over the phase."""
+    BA problem of each tier and its solver settings are kept there. `hard`
+    holds the hard sequence's frames, or a dict of them by the tiers'
+    datasets. A tier with the loop closer on also holds its ``wlc_opt`` ATE
+    to the JAX package's. Returns the launches of both kernels over the
+    phase and each tier's row."""
     total = {"klt_track": 0, "lk_iterate": 0}
     rows = {}
     for name in names:
         d = tiers.tier_dict(name)
         mono = bool(d.get("mono"))
-        frames = hard if tiers.TIERS[name] else tiers.kf2f_frames()
+        t = tiers.TIERS[name]
+        frames = (tiers.kf2f_frames() if t is None
+                  else hard[t.dataset] if isinstance(hard, dict) else hard)
         mesh = sharded.make_mesh(devices=[dev] * shards) if shards else None
         slam = SlamSystem(SlamParams.from_dict(d), device=dev, mesh=mesh)
         syncs, per_call, stereo_kf = collections.Counter(), [], []
@@ -1101,6 +1153,13 @@ def phase_tiers(tag: str, dev, names, hard, shards: int = 0,
         assert slam.initialized, f"{name} never initialized"
         assert row["ate"] <= ATE_SLACK * ref + ATE_ABS, (
             f"{name}: ATE {row['ate']:.4f} m vs JAX {ref:.4f} m")
+        if "ate_wlc_opt" in row and not shards:
+            ref_opt = REF_ATE[name + "_wlc_opt"]
+            log(f"[{tag}] {name}: wlc_opt ATE {row['ate_wlc_opt']:.5f} m (JAX "
+                f"CPU {ref_opt:.5f}, bound {ATE_SLACK * ref_opt + ATE_ABS:.5f}),"
+                f" loops {row['loops']}, final passes "
+                f"{1000 * row['final_seconds']:.0f} ms")
+            assert row["ate_wlc_opt"] <= ATE_SLACK * ref_opt + ATE_ABS, row
         assert per_call[0] == 0 and all(k == 1 for k in per_call[1:]), (
             f"{name}: tracking calls must launch klt_track once: {per_call}")
         assert lk.LAUNCHES == 0, f"{name}: the per-chunk LK path ran"
@@ -1214,22 +1273,23 @@ def drive_loop(run, total: dict, profile: bool = False):
     return row, rec
 
 
-def phase_lc_tier(dev, total: dict, frames):
+def phase_lc_tier(dev, total: dict, frames, name: str = "accurate_stereo",
+                  tag: str = "loop"):
     """11a. accurate_stereo, the shipped loop-closing preset, over the
-    whole hard sequence (`frames`)."""
-    name = "accurate_stereo"
+    whole hard sequence (`frames`); 15 (c) the same for accurate_mono_lc."""
     slam = tiers.make_system("torch", tiers.tier_dict(name), dev, tiers.LC_DETECTOR)
     assert slam.loopcloser is not None and slam.params.force_realtime
+    mono = bool(slam.params.mono)
     ops = set()
     with tiers.deterministic(ops):
         row, rec = drive_loop(lambda call: tiers.run_tier(
-            slam, frames, False, call=call, sync=torch.cuda.synchronize), total)
+            slam, frames, mono, call=call, sync=torch.cuda.synchronize), total)
     n = row["frames"]
     poses = np.stack(slam.logger.poses_wc)
     ref, ref_opt = REF_ATE[name], REF_ATE[name + "_wlc_opt"]
     closures = [ms for ms, ev in rec["process_kf"] if ev is not None]
     per_kf = [ms for ms, ev in rec["process_kf"] if ev is None]
-    log(f"[loop] {name}: {n} frames, ATE {row['ate']:.5f} m (JAX CPU "
+    log(f"[{tag}] {name}: {n} frames, ATE {row['ate']:.5f} m (JAX CPU "
         f"{ref:.5f}, bound {ATE_SLACK * ref + ATE_ABS:.5f}), wlc_opt ATE "
         f"{row['ate_wlc_opt']:.5f} m (JAX CPU {ref_opt:.5f}, bound "
         f"{ATE_SLACK * ref_opt + ATE_ABS:.5f}), {row['fps']:.2f} fps over "
@@ -1238,14 +1298,15 @@ def phase_lc_tier(dev, total: dict, frames):
         f" jump m] {row['loops']}, final passes {1000 * row['final_seconds']:.0f} ms;"
         f" deterministic algorithms on, operations without a deterministic "
         f"version: {sorted(ops) or 'none'}")
-    log(f"[loop] {name}: loop-closing stage per keyframe without a closure: "
+    log(f"[{tag}] {name}: loop-closing stage per keyframe without a closure: "
         f"{_ms_summary(per_kf)}; with a closure: {_ms_summary(closures)}; "
         f"span BA: {_ms_summary([ms for ms, _ in rec['span_ba']])}; budget "
         f"timeouts {slam.estimator.n_ba_timeouts}")
     assert poses.shape == (n, 4, 4) and np.isfinite(poses).all(), (
         f"{name}: {len(poses)} poses logged for {n} frames")
-    assert any(e[2] >= MIN_INLIERS for e in row["loops"]), (
-        f"{name}: no loop closure with >= {MIN_INLIERS} inliers: {row['loops']}")
+    assert any(e[2] >= LC_MIN_INLIERS[name] for e in row["loops"]), (
+        f"{name}: no loop closure with >= {LC_MIN_INLIERS[name]} inliers: "
+        f"{row['loops']}")
     assert row["ate"] <= ATE_SLACK * ref + ATE_ABS, row["ate"]
     assert row["ate_wlc_opt"] <= ATE_SLACK * ref_opt + ATE_ABS, row["ate_wlc_opt"]
 
@@ -1732,19 +1793,153 @@ def phase_sharded_tier(dev, total: dict, hard, rect_ate: float):
         + f"; spread {max(ates.values()) - min(ates.values()):.5f} m")
 
 
-def start_loop_runs():
-    """Start the four out-and-back runs, one process each (this script with
-    --loop-run NAME), all at once: they share the card and the host, so
-    their host times are not clean timings."""
+def phase_bench(dev, total: dict, seq) -> int:
+    """15 (a). scripts/torch_bench.py's main on the card, frame by frame and
+    in chunks of CHUNK, BENCH_PASSES passes each: its JSON line (printed
+    by it), the ATE held to bench.py's on the CPU, the accounting present
+    without a TPU figure; one klt_track launch per tracking call besides
+    the keyframe stereo matches, and in chunks one graph replay launch per
+    chunked frame. `seq`: the surface's frames (phase 13's). Adds the
+    wrapper's launches of the timed passes to `total`; returns the graph
+    replays' launches."""
+    import torch_bench
+    replays = 0
+    for chunk in (0, CHUNK):
+        per_call, stereo_kf = [], []
+        klt.LAUNCHES = lk.LAUNCHES = 0
+        with counting_stereo_kf_steps(stereo_kf), \
+                counting_tracking_calls(per_call, stereo_kf):
+            out = torch_bench.main(["--frames", str(CHUNK_FRAMES), "--passes",
+                                    str(BENCH_PASSES), "--chunk", str(chunk)],
+                                   frames=seq)
+        ex = out["extra"]
+        ref = REF_BENCH_ATE[chunk]
+        bound = ATE_SLACK * ref + ATE_ABS
+        total["klt_track"] += ex["klt_track_launches"]
+        total["lk_iterate"] += lk.LAUNCHES
+        replays += ex["klt_track_graph_launches"]
+        stages = ex.get("per_stage_ms", {})
+        log(f"[bench] {'chunks of ' + str(chunk) if chunk else 'frame by frame'}"
+            f": best {out['value']:.2f} fps, passes "
+            f"{[round(f, 2) for f in ex['fps_passes_best_to_worst']]}, ATE "
+            f"{ex['ate_rmse_m']:.5f} m (JAX bench.py on the CPU {ref:.5f}, "
+            f"bound {bound:.5f}), keyframes {ex['n_keyframes']}, landmarks "
+            f"{ex['n_landmarks_3d']}; frame step {ex.get('frame_step_device_ms')}"
+            f" ms by graph replay, {ex.get('frame_step_eager_ms')} ms eager; "
+            f"stages {stages}; klt_track {stages.get('fb_klt')}"
+            f" ms vs bound {ex.get('klt_bound_ms')} ms (share "
+            f"{ex.get('klt_bound_share')}); klt_track over the passes by its "
+            f"wrapper {ex['klt_track_launches']}, by graph replays "
+            f"{ex['klt_track_graph_launches']}; lk_iterate {lk.LAUNCHES}")
+        assert "accounting_error" not in ex, ex["accounting_error"]
+        assert ex["ate_rmse_m"] <= bound, (chunk, ex["ate_rmse_m"], bound)
+        assert len(ex["fps_passes_best_to_worst"]) == BENCH_PASSES
+        assert smi_line() in ex["backend"], ex["backend"]
+        assert ex["frame_step_device_ms"] > 0 and set(stages) == {
+            "preprocess_grads", "fb_klt", "pnp_ransac_other"}
+        assert not {"mfu_est", "hbm_util_est", "flops_per_frame"} & set(ex)
+        assert lk.LAUNCHES == 0, "the per-chunk LK path ran"
+        # frame-by-frame calls (every system's first is its initial keyframe)
+        assert set(per_call) <= {0, 1} and per_call.count(1) >= (
+            BENCH_PASSES * (CHUNK_FRAMES - 1 if not chunk else CHUNK - 1)), (
+            sorted(collections.Counter(per_call).items()))
+        if chunk:
+            assert ex["klt_track_graph_launches"] == BENCH_PASSES * (
+                CHUNK_FRAMES - CHUNK), ex["klt_track_graph_launches"]
+    return replays
+
+
+def klt_kitti(dev, kitti) -> tuple:
+    """15 (b). klt_track against its plain version on the KITTI rig's
+    frames 0-1 (level widths 1241, 621, 311, 156), then its device time by
+    graph replay beside its bound. Returns (max |dp|, ms, bound ms, by)."""
+    args, kw = klt_inputs.klt_case(
+        (kitti[0][:2], kitti[1][:2]), KITTI_KLT_N, "temporal", 1.5, dev,
+        nlevels=KITTI_LEVELS, cell=KITTI_CELL)
+    shapes = [tuple(a.shape) for a in args[0]]
+    r = klt.fb_klt_tracking(*args, **kw)
+    rp = klt.fb_klt_tracking_plain(*args, **kw)
+    torch.cuda.synchronize()
+    agree = float((r.status == rp.status).float().mean())
+    both = r.status & rp.status
+    dp = float((r.points - rp.points).abs()[both].max())
+    de = float((r.error - rp.error).abs()[both].max())
+    k_ms = graph_ms(lambda: klt.fb_klt_tracking(*args, **kw))
+    b_ms, b_by, nbytes, ops, _ = klt_bound(args, kw)
+    log(f"[rigs] klt_track on the KITTI rig, levels {shapes}, N={KITTI_KLT_N}:"
+        f" tracked {int(r.status.sum())} / plain {int(rp.status.sum())}, "
+        f"status agree {agree:.4f}, max |dp| {dp:.3g} px, max |derr| {de:.3g};"
+        f" device {k_ms:.5f} ms (graph replay), bound {b_ms:.6f} ms by {b_by} "
+        f"({nbytes} B; {ops} FLOP)")
+    assert shapes[-1][1] % 2 == 0 and all(w % 2 for _, w in shapes[:-1]), shapes
+    assert agree >= MASK_AGREE and dp <= PTS_TOL and de <= ERR_TOL, (agree, dp, de)
+    assert int(both.sum()) >= 100, int(both.sum())
+    return dp, k_ms, b_ms, b_by
+
+
+def save_frames(frames, root: Path) -> Path:
+    """The hard sequence's left images, the right ones of its first
+    TIER_FRAMES frames and its gt positions as .npy files (a child process
+    maps them instead of rendering again)."""
+    np.save(root / "left.npy", np.stack(frames[0]))
+    np.save(root / "right.npy", np.stack(frames[1][:TIER_FRAMES]))
+    np.save(root / "gt.npy", frames[2])
+    return root
+
+
+def tier_child(name: str, root: Path) -> int:
+    """--tier-run NAME over the frames saved under `root`, on the card: 15
+    (b), the rig tiers ("rigs": the KITTI and TartanAir frames rendered
+    here, the EuRoC ones mapped) and klt_track on the KITTI rig, or 15 (c),
+    the mono loop tier. The last line is its kernels' launches (and the
+    KITTI kernel check's numbers)."""
+    device_mod.set_precision_policy()
+    _build.build(["lk_iterate", "klt_track"])
+    dev = torch.device("cuda", 0)
+    left = np.load(root / "left.npy", mmap_mode="r")
+    gt = np.load(root / "gt.npy")
+    total = {"klt_track": 0, "lk_iterate": 0}
+    out = {"tier_run": name, "launches": total}
+    if name == "rigs":
+        right = np.load(root / "right.npy")
+        rigs = {"euroc": (left[:TIER_FRAMES], right, gt[:TIER_FRAMES]), **{
+            tiers.TIERS[n].dataset: tiers.hard_frames(
+                TIER_FRAMES, dataset=tiers.TIERS[n].dataset)
+            for n in RIG_TIERS if tiers.TIERS[n].dataset != "euroc"}}
+        launches, _ = phase_tiers("rigs", dev, RIG_TIERS, rigs)
+        total.update(launches)
+        out["kitti_klt"] = klt_kitti(dev, rigs["kitti"])
+    else:
+        phase_lc_tier(dev, total, (left, left, gt), name, tag="mono lc")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_runs(runs):
+    """Start a process of this script for each (name, arguments) of `runs`,
+    all at once: they share the card and the host, so their host times are
+    not clean timings."""
     return [(name, subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--loop-run", name],
+        [sys.executable, str(Path(__file__).resolve()), *argv],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in LOOP_RUNS]
+        for name, argv in runs]
 
 
-def finish_loop_runs(procs, total: dict, timeout_s: float = 900):
+def start_loop_runs():
+    """The four out-and-back runs, one process each (--loop-run NAME)."""
+    return start_runs([(name, ["--loop-run", name]) for name in LOOP_RUNS])
+
+
+def start_tier_run(name: str, root: Path):
+    """Phase 15's run `name` in a process of its own (--tier-run)."""
+    return start_runs([(name, ["--tier-run", name, "--frames-dir", str(root)])])
+
+
+def finish_loop_runs(procs, total: dict, timeout_s: float = 900) -> dict:
     """Wait for the runs, relay their output, add their launches to
-    `total`; raise if one failed. Every process is ended on the way out."""
+    `total`; raise if one failed. Every process is ended on the way out.
+    Returns each run's last line."""
+    last = {}
     try:
         for name, proc in procs:
             out, _ = proc.communicate(timeout=timeout_s)
@@ -1752,9 +1947,10 @@ def finish_loop_runs(procs, total: dict, timeout_s: float = 900):
             for line in lines[:-1]:
                 log(line)
             if proc.returncode != 0 or not lines:
-                raise AssertionError(f"loop run {name} failed (exit "
+                raise AssertionError(f"run {name} failed (exit "
                                      f"{proc.returncode}): {lines[-1:]}")
-            counts = json.loads(lines[-1])["launches"]
+            last[name] = json.loads(lines[-1])
+            counts = last[name]["launches"]
             for k in total:
                 total[k] += counts[k]
     finally:
@@ -1762,6 +1958,7 @@ def finish_loop_runs(procs, total: dict, timeout_s: float = 900):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    return last
 
 
 def loop_child(name: str) -> int:
@@ -1889,6 +2086,11 @@ def main() -> int:
     ap.add_argument("--loop-run", choices=LOOP_RUNS,
                     help="run one out-and-back run of phase 11 alone (the "
                          "smoke starts these itself)")
+    ap.add_argument("--tier-run", choices=("rigs", MONO_LC),
+                    help="run phase 15 (b) or (c) alone over the frames "
+                         "saved in --frames-dir (the smoke starts them "
+                         "itself)")
+    ap.add_argument("--frames-dir", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run "
@@ -1899,6 +2101,8 @@ def main() -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.loop_run:
         return loop_child(args.loop_run)
+    if args.tier_run:
+        return tier_child(args.tier_run, args.frames_dir)
     t_start = time.perf_counter()
 
     def phase_done(what: str):
@@ -1939,7 +2143,8 @@ def main() -> int:
     # the synthetic sequence: the slice takes its first N_FRAMES frames, the
     # chunk phase all of them (bench.py's surface)
     t0 = time.perf_counter()
-    seq = syn.render_sequence(n_frames=CHUNK_FRAMES, step=STEP, yaw_rate=YAW)
+    seq = tiers.synthetic_sequence(CHUNK_FRAMES)
+    assert tiers.KF2F_STEP == STEP and tiers.KF2F_YAW == YAW
     log(f"[render] {CHUNK_FRAMES} synthetic frames at {syn.W}x{syn.H} in "
         f"{time.perf_counter() - t0:.1f} s")
     launches, frames = phase_slice(dev, seq)
@@ -1964,32 +2169,46 @@ def main() -> int:
     phase_done("chunk (a), (b)")
     phase_sharded(dev, captured)
     phase_done("sharded (a), (b)")
-    # the out-and-back runs beside 13c and 14c, which need no clean timing
+    # 15 (c) in a process of its own beside 15 (a); then the out-and-back
+    # runs and 15 (b), processes too, beside 13 (c) and 14 (c)
+    bench = {"klt_track": 0, "lk_iterate": 0}
     sharded_total = {"klt_track": 0, "lk_iterate": 0}
-    procs = start_loop_runs()
-    try:
-        phase_repeat(dev, chunk, hard)
-        phase_done("chunk (c)")
-        phase_sharded_tier(dev, sharded_total, hard,
-                           rect_rows["accurate_stereo_rect"]["ate"])
-        phase_done("sharded (c)")
-    finally:
-        finish_loop_runs(procs, loop)
-    phase_done("out-and-back runs")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = save_frames(hard_all, Path(tmp))
+        mono_lc = start_tier_run(MONO_LC, root)
+        procs = []
+        try:
+            graph_launches += phase_bench(dev, bench, seq)
+            phase_done("bench (a)")
+            procs = start_loop_runs() + start_tier_run("rigs", root)
+            phase_repeat(dev, chunk, hard)
+            phase_done("chunk (c)")
+            phase_sharded_tier(dev, sharded_total, hard,
+                               rect_rows["accurate_stereo_rect"]["ate"])
+            phase_done("sharded (c)")
+        finally:
+            last = finish_loop_runs(mono_lc + procs, loop)
+        kitti_dp, kitti_ms, kitti_b, kitti_by = last["rigs"]["kitti_klt"]
+    phase_done("out-and-back runs, rigs (b), mono lc (c)")
     launches = {k: launches[k] + mono[k] + presets[k] + rect[k] + loop[k]
-                + cli_total[k] + chunk[k] + sharded_total[k] for k in launches}
+                + cli_total[k] + chunk[k] + sharded_total[k] + bench[k]
+                for k in launches}
     if args.profile:
         phase_compare(dev, frames)
         phase_profile(dev, frames, mono_frames, args.profile, hard)
 
     k_ms, p_ms, b_ms, b_by = klt_times["temporal"]
+    log(f"[rigs] klt_track at N=192 on the EuRoC rig {k_ms:.5f} ms (bound "
+        f"{b_ms:.6f} ms by {b_by}); at N={KITTI_KLT_N} on the KITTI rig "
+        f"{kitti_ms:.5f} ms (bound {kitti_b:.6f} ms by {kitti_by})")
     lk_ms, lp_ms, lb_ms, lb_by = lk_times[(192, 10)]
     log(smi)
     print(json.dumps({"kernels": [
         {"name": "klt_track", "route": "cuda",
          "source": "ov2slam_tpu_torch/csrc/klt_track.cu",
          "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
-         "launches": launches["klt_track"], "max_abs_err": klt_worst,
+         "launches": launches["klt_track"],
+         "max_abs_err": max(klt_worst, kitti_dp),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None, "graph_replay_launches": graph_launches},
         {"name": "lk_iterate", "route": "cuda",

@@ -194,9 +194,12 @@ def clahe(img: torch.Tensor, clip_limit: float = 3.0) -> torch.Tensor:
     lut = torch.cumsum(clipped, dim=1) * ((nbins - 1.0) / tile_px)
     lut = lut.reshape(n_t, n_t, nbins)
 
-    # interpolate between the 4 surrounding tile LUTs at every pixel
-    ys = torch.arange(Hp, dtype=torch.float32, device=dev)
-    xs = torch.arange(Wp, dtype=torch.float32, device=dev)
+    # interpolate between the 4 surrounding tile LUTs at every pixel of the
+    # image (not of its padding: the result is a whole (H, W) tensor, which
+    # the KLT kernel's planes must be)
+    q = q[:H, :W]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)
     ty = (ys - th / 2.0 + 0.5) / th
     tx = (xs - tw / 2.0 + 0.5) / tw
     ty0 = torch.clamp(torch.floor(ty), 0, n_t - 1).to(torch.int64)
@@ -213,4 +216,4 @@ def clahe(img: torch.Tensor, clip_limit: float = 3.0) -> torch.Tensor:
            + lut_at(ty0, tx1) * (1 - fy) * fx
            + lut_at(ty1, tx0) * fy * (1 - fx)
            + lut_at(ty1, tx1) * fy * fx)
-    return out[:H, :W]
+    return out

@@ -5,25 +5,38 @@ JAX package, and print one JSON line per tier.
         [--device cuda|cpu] [--frames 120] [--tiers NAME,NAME] [--chunk N]
         [--out FILE]
 
-Tiers (``TIERS``): each is a shipped preset file,
-``parameters_files/<tier>/euroc/euroc_<mode>.yaml``, with only the camera
-replaced by ``tests/hard_synthetic.py``'s EuRoC rig (752x480, f = 458,
-0.11 m baseline, k1 = -0.28, k2 = 0.07), as ``scripts/hard_bench.py`` builds
-its tiers. Every setting of the file stays as shipped, ``force_realtime``
-among them; ``accurate_stereo_nolc`` and ``accurate_stereo_rect`` switch the
-loop closer off, the latter also sets ``bdo_stereo_rect``. They run over the
+Tiers (``TIERS``, ``scripts/hard_bench.py``'s ``tier_configs``): each is a
+shipped preset file, ``parameters_files/<tier>/<dataset>/<file>``, with only
+the camera replaced by the dataset's rig of ``tests/hard_synthetic.py``:
+EuRoC (752x480, f = 458, 0.11 m baseline, k1 = -0.28, k2 = 0.07), KITTI
+(1241x376, f = 718.856, 0.537 m, the same distortion) or TartanAir (640x480,
+f = 320, 0.25 m, no distortion), as ``scripts/hard_bench.py`` builds its
+tiers (``tier_dict`` equals its ``preset_config`` without the ``__*__``
+keys). Every setting of the file stays as shipped, ``force_realtime`` among
+them; ``accurate_stereo_nolc`` and ``accurate_stereo_rect`` switch the loop
+closer off, the latter also sets ``bdo_stereo_rect``. They run over the
 first ``--frames`` frames of ``render_hard_sequence(n_frames=1000)`` (a
 prefix: the trajectory's spacing depends on n_frames), rendered by
 ``tests/hard_synthetic_np.py`` and quantized to uint8, then ``flush()``.
 ``accurate_stereo`` (the loop closer on, as shipped) runs all ``HARD_N``
-(1000) frames (the trajectory revisits its start after ~926), with the
-loop detector scaled to the sequence's ~50 keyframes as
-``scripts/hard_bench.py`` scales it (``LC_DETECTOR``). ``kf2f`` is
+(1000) frames (the trajectory revisits its start after ~926), with the loop
+detector scaled to the sequence's ~50 keyframes as ``scripts/hard_bench.py``
+scales it (``LC_DETECTOR``), and so does ``accurate_mono_lc`` (the mono
+preset with the loop closer on). The loop closer is on as shipped in
+``average_stereo``, ``kitti_stereo`` (the KITTI 00-02 preset,
+``bdo_stereo_rect`` on) and ``tartanair_stereo``, which run ``--frames``
+frames of their rig's 1000-frame sequence like the tiers above (``--frames
+1000``: the whole loop). ``accurate_stereo_2laps`` runs all of
+``render_hard_sequence(2000)`` (two laps), ``endurance_fig8`` all of
+``render_hard_sequence(5000, traj="fig8")`` with ``lm_capacity`` 65,536 and
+the loop detector's shipped defaults; these two are left out of the default
+``--tiers`` and are streamed (``HardStream``: worker processes render a few
+frames ahead of the system) instead of rendered first. ``kf2f`` is
 ``chip_smoke.py``'s 60-frame synthetic stereo slice
 (``tests/synthetic_np.py``, step 0.03 m) with ``btrack_keyframetoframe: 1``.
 ``bench`` is ``bench.py``'s surface: 120 frames of the same sequence with
-``tests/synthetic.py``'s ``slam_params_dict()`` as it is. With ``--chunk
-N`` the stereo tiers feed ``process_stereo_chunk`` N frames at a time (the
+``tests/synthetic.py``'s ``slam_params_dict()`` as it is. With ``--chunk N``
+the stereo tiers feed ``process_stereo_chunk`` N frames at a time (the
 throughput mode; keyframes only on a chunk's last frame), through either
 package.
 
@@ -39,17 +52,20 @@ deterministic algorithms (``deterministic``): the scatter-adds of the BA,
 the pose graph and the PCG then sum in a fixed order on the card, so that
 a run repeats as long as the span BA's wall-clock budget does not cut it.
 
-Each line: the tier, its ATE (m; Sim(3)-aligned for mono, SE(3) for
-stereo) over the logged per-frame poses, frames, keyframes, 3D landmarks,
-the deepest in-flight FIFO, wall seconds and frames per second after the
-first frame (host clock, flush included); with the loop closer also the
-loop events, the ATE of the relaxed full trajectory
+Each line: the tier, its ATE (m; Sim(3)-aligned for mono, SE(3) for stereo)
+over the logged per-frame poses, frames, keyframes, 3D landmarks, the
+deepest in-flight FIFO, wall seconds and frames per second after the first
+frame (host clock, flush included); with the loop closer also the loop
+events, the ATE of the relaxed full trajectory
 (``ov2slam_full_traj_wlc_opt.txt``) and the seconds of ``write_results``;
-the kidnap run the relocalization error and the tracking-chain generation;
-a loop tier of the port also the operations that have no deterministic
-version, where one ran. ``--backend jax`` imports the
-JAX package only then and runs it on the CPU (it gives the reference ATEs
-that ``chip_smoke.py`` records); the default runs the port on the card.
+the kidnap run the relocalization error and the tracking-chain generation; a
+loop tier of the port also the operations that have no deterministic
+version, where one ran; every hard-sequence tier the host seconds of each
+span BA, the BA budget timeouts and truncations, and on the card the peak
+device memory (``torch.cuda.max_memory_allocated``). ``--backend jax``
+imports the JAX package only then and runs it on the CPU (it gives the
+reference ATEs that ``chip_smoke.py`` records); the default runs the port on
+the card.
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -70,18 +87,49 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 HARD_N, DIST, FRAME_DT = 1000, (-0.28, 0.07), 0.05
+
+
+class Tier(NamedTuple):
+    """A hard-sequence tier: ``parameters_files/<preset>/<dataset>/<file>``
+    (default ``<dataset>_<mode>.yaml``) with `overrides`, on the dataset's
+    synthetic rig. `frames` 0 runs the first ``--frames`` frames of
+    ``render_hard_sequence(HARD_N)``; otherwise all frames of
+    ``render_hard_sequence(frames, traj=traj)``. `stock_lc` keeps the loop
+    detector's shipped defaults (else ``LC_DETECTOR``)."""
+    preset: str
+    mode: str
+    overrides: dict = {}
+    dataset: str = "euroc"
+    preset_file: Optional[str] = None
+    frames: int = 0
+    traj: str = "loop"
+    stock_lc: bool = False
+
+
 TIERS = {
-    "fast_stereo": ("fast", "stereo", {}),
-    "accurate_stereo_nolc": ("accurate", "stereo", {"buse_loop_closer": 0}),
-    "accurate_mono": ("accurate", "mono", {}),
-    "average_mono": ("average", "mono", {}),
-    "fast_mono": ("fast", "mono", {}),
-    "accurate_stereo_rect": ("accurate", "stereo",
-                             {"bdo_stereo_rect": 1, "buse_loop_closer": 0}),
+    "fast_stereo": Tier("fast", "stereo"),
+    "accurate_stereo_nolc": Tier("accurate", "stereo", {"buse_loop_closer": 0}),
+    "accurate_mono": Tier("accurate", "mono"),
+    "average_mono": Tier("average", "mono"),
+    "fast_mono": Tier("fast", "mono"),
+    "accurate_stereo_rect": Tier("accurate", "stereo",
+                                 {"bdo_stereo_rect": 1, "buse_loop_closer": 0}),
     "kf2f": None,
     "bench": None,
-    "accurate_stereo": ("accurate", "stereo", {}),
+    "accurate_stereo": Tier("accurate", "stereo", frames=HARD_N),
+    "average_stereo": Tier("average", "stereo"),
+    "kitti_stereo": Tier("accurate", "stereo", dataset="kitti",
+                         preset_file="kitti_00-02.yaml"),
+    "tartanair_stereo": Tier("accurate", "stereo", dataset="tartanair"),
+    "accurate_mono_lc": Tier("accurate", "mono", {"buse_loop_closer": 1},
+                             frames=HARD_N),
+    "accurate_stereo_2laps": Tier("accurate", "stereo", frames=2 * HARD_N),
+    "endurance_fig8": Tier("accurate", "stereo", {"lm_capacity": 1 << 16},
+                           frames=5 * HARD_N, traj="fig8", stock_lc=True),
 }
+# the synthetic rig of each dataset (tests/hard_synthetic_np.py); TartanAir's
+# is distortion-free, the others carry DIST
+CAMS = {"euroc": "CAM_EUROC", "kitti": "CAM_KITTI", "tartanair": "CAM_TARTAN"}
 # scripts/hard_bench.py's loop detector for the ~50-keyframe sequence
 LC_DETECTOR = dict(p_wait=12, island_size=10, min_score=3.0)
 OAB = {
@@ -91,9 +139,14 @@ OAB = {
     "oab_kidnap": {},
 }
 KIDNAP_HALF, KIDNAP_VIEW = 30, 6
+STREAM_DEPTH = 4        # frames a render worker may be ahead of the system
 KF2F_FRAMES, KF2F_STEP, KF2F_YAW = 60, 0.03, 0.0015
 BENCH_FRAMES = 120
 _CAL_KEYS = ("T_left_right", "body_T_cam0", "body_T_cam1")
+
+
+def dist_of(dataset: str) -> tuple:
+    return (0.0, 0.0) if dataset == "tartanair" else DIST
 
 
 def tier_dict(name: str) -> dict:
@@ -101,58 +154,143 @@ def tier_dict(name: str) -> dict:
     import hard_synthetic_np as hs
     import synthetic_np as syn
     from ov2slam_tpu_torch.config import load_opencv_yaml
-    if TIERS[name] is None:
+    t = TIERS[name]
+    if t is None:
         d = syn.slam_params_dict()
         if name == "kf2f":
             d["btrack_keyframetoframe"] = 1
         return d
-    tier, mode, overrides = TIERS[name]
-    path = ROOT / "parameters_files" / tier / "euroc" / f"euroc_{mode}.yaml"
+    path = (ROOT / "parameters_files" / t.preset / t.dataset
+            / (t.preset_file or f"{t.dataset}_{t.mode}.yaml"))
     d = {k: v for k, v in load_opencv_yaml(str(path)).items()
          if not k.startswith("Camera.") and k not in _CAL_KEYS}
-    cal = hs.params_dict(dist=DIST, use_clahe=int(d.get("use_clahe", 1)))
+    cal = hs.params_dict(dist=dist_of(t.dataset),
+                         use_clahe=int(d.get("use_clahe", 1)),
+                         cam=getattr(hs, CAMS[t.dataset]))
     d.update({k: v for k, v in cal.items()
               if k.startswith("Camera.") or k == "T_left_right"})
-    d.update(mono=int(mode == "mono"), stereo=int(mode == "stereo"))
-    d.update(overrides)
+    d.update(mono=int(t.mode == "mono"), stereo=int(t.mode == "stereo"))
+    d.update(t.overrides)
     return d
 
 
-def _hard_chunk(idx):
-    """Frames `idx` of render_hard_sequence(n_frames=HARD_N), as uint8
-    pairs and gt positions (one spawned worker's share)."""
+def _render(n: int, n_seq: int, dataset: str, traj: str, k: int = 0,
+            step: int = 1):
+    """Frames k, k + step, ... < n of the sequence, as (left uint8, right
+    uint8, gt position)."""
     import hard_synthetic_np as hs
-    return [(il.astype(np.uint8), ir.astype(np.uint8), T_wc[:3, 3])
-            for il, ir, _, T_wc in hs.render_hard_sequence(
-                HARD_N, dist=DIST, frames=idx)]
+    for il, ir, _, T_wc in hs.render_hard_sequence(
+            n_seq, dist=dist_of(dataset), cam=getattr(hs, CAMS[dataset]),
+            traj=traj, frames=range(k, n, step)):
+        yield il.astype(np.uint8), ir.astype(np.uint8), T_wc[:3, 3]
 
 
-def hard_frames(n: int, workers: int = None):
-    """(left uint8 list, right uint8 list, gt positions (n, 3)): the first
-    n frames of render_hard_sequence(n_frames=1000), rendered by `workers`
-    spawned processes (default: one per CPU core, at most 8)."""
-    workers = workers or min(8, os.cpu_count() or 1)
-    chunks = [list(range(k, n, workers)) for k in range(workers)]
-    if workers == 1:
-        parts = [_hard_chunk(chunks[0])]
-    else:
+def _stream_worker(q, *args):
+    """One spawned worker's share of the frames into `q` (the queue's bound
+    holds it back)."""
+    for item in _render(*args):
+        q.put(item)
+
+
+class HardStream:
+    """The first `n` frames of ``render_hard_sequence(n_seq, cam, dist,
+    traj)`` of a dataset's rig, as uint8 pairs and gt positions, in order,
+    rendered as they are read by `workers` spawned processes (default: one
+    per CPU core, at most 8; 1 renders in this process). Each worker renders
+    every workers-th frame and stays at most STREAM_DEPTH frames ahead, so a
+    5000-frame sequence never sits in memory. Iterating again renders
+    again."""
+
+    def __init__(self, n: int, n_seq: int = HARD_N, dataset: str = "euroc",
+                 traj: str = "loop", workers: int = None):
+        self.n, self.n_seq, self.dataset, self.traj = n, n_seq, dataset, traj
+        self.workers = max(1, min(workers or min(8, os.cpu_count() or 1), n))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        seq = (self.n, self.n_seq, self.dataset, self.traj)
+        if self.workers == 1:
+            yield from _render(*seq)
+            return
         import multiprocessing
-        with multiprocessing.get_context("spawn").Pool(workers) as pool:
-            parts = pool.map(_hard_chunk, chunks)
-    frames = [None] * n
-    for idx, part in zip(chunks, parts):
-        for i, f in zip(idx, part):
-            frames[i] = f
-    L, R, gt = zip(*frames)
+        import queue
+        ctx = multiprocessing.get_context("spawn")
+        w = self.workers
+        qs = [ctx.Queue(STREAM_DEPTH) for _ in range(w)]
+        procs = [ctx.Process(target=_stream_worker, daemon=True,
+                             args=(qs[k], *seq, k, w)) for k in range(w)]
+        for p in procs:
+            p.start()
+        try:
+            for i in range(self.n):
+                while True:
+                    try:
+                        item = qs[i % w].get(timeout=10)
+                        break
+                    except queue.Empty:
+                        if not procs[i % w].is_alive():
+                            raise RuntimeError(
+                                f"render worker {i % w} ended before frame {i}")
+                yield item
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+
+
+def hard_frames(n: int, workers: int = None, **seq):
+    """(left uint8 list, right uint8 list, gt positions (n, 3)): the first
+    n frames of a HardStream (`seq`: its n_seq, dataset and traj; default
+    render_hard_sequence(n_frames=1000) on the EuRoC rig)."""
+    L, R, gt = zip(*HardStream(n, workers=workers, **seq))
     return list(L), list(R), np.stack(gt)
+
+
+def tier_frames(name: str, n: int):
+    """A tier's frames: (left, right, gt) lists for the synthetic tiers and
+    for hard-sequence runs of at most HARD_N frames, else a HardStream. `n`
+    is the prefix of a tier whose ``frames`` is 0."""
+    t = TIERS[name]
+    if t is None:
+        return kf2f_frames(BENCH_FRAMES if name == "bench" else KF2F_FRAMES)
+    seq = dict(n_seq=t.frames or HARD_N, dataset=t.dataset, traj=t.traj)
+    n = t.frames or n
+    return hard_frames(n, **seq) if n <= HARD_N else HardStream(n, **seq)
+
+
+def _synthetic_part(args):
+    n, idx = args
+    import synthetic_np as syn
+    return syn.render_sequence(n_frames=n, step=KF2F_STEP, yaw_rate=KF2F_YAW,
+                               frames=idx)
+
+
+def synthetic_sequence(n: int, workers: int = None):
+    """``synthetic_np.render_sequence(n, step=0.03, yaw_rate=0.0015)``
+    (left, right, gt poses), the frames split over `workers` spawned
+    processes (default: one per CPU core, at most 8; 1 renders here)."""
+    workers = max(1, min(workers or min(8, os.cpu_count() or 1), n))
+    parts = [(n, list(range(k, n, workers))) for k in range(workers)]
+    if workers == 1:
+        return _synthetic_part(parts[0])
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        done = pool.map(_synthetic_part, parts)
+    out = ([None] * n, [None] * n, [None] * n)
+    for (_, idx), part in zip(parts, done):
+        for seq, vals in zip(out, part):
+            for i, v in zip(idx, vals):
+                seq[i] = v
+    return out
 
 
 def kf2f_frames(n: int = KF2F_FRAMES):
     """(left, right, gt positions) of the synthetic slice (the kf2f and,
     with n = BENCH_FRAMES, the bench tier)."""
-    import synthetic_np as syn
-    fl, fr, gt = syn.render_sequence(n_frames=n, step=KF2F_STEP,
-                                     yaw_rate=KF2F_YAW)
+    fl, fr, gt = synthetic_sequence(n)
     return fl, fr, np.stack([T[:3, 3] for T in gt])
 
 
@@ -179,35 +317,41 @@ def times_ate(times, positions, gt: np.ndarray, mono: bool) -> float:
 
 def run_tier(slam, frames, mono: bool, call=None, sync=None,
              chunk: int = 1) -> dict:
-    """Drive `slam` over frames = (left, right, gt), then flush. `call(i,
-    fn)` wraps each call (default: fn()): each frame's, or with chunk > 1
-    (stereo) each ``process_stereo_chunk`` call's, i its first frame;
-    `sync()` waits for the device before the clock is read. Returns the
-    tier's numbers (fps after the first call)."""
-    L, R, gt = frames
+    """Drive `slam` over frames, a (left, right, gt) tuple or a HardStream,
+    then flush. `call(i, fn)` wraps each call (default: fn()): each
+    frame's, or with chunk > 1 (stereo) each ``process_stereo_chunk``
+    call's, i its first frame; `sync()` waits for the device before the
+    clock is read. Returns the tier's numbers (fps after the first call)."""
+    if isinstance(frames, HardStream):
+        n, src = len(frames), iter(frames)
+    else:
+        n, src = len(frames[2]), zip(*frames)
+    gt = np.zeros((n, 3))
     call = call or (lambda i, fn: fn())
     sync = sync or (lambda: None)
-    depth, t_first = 0, None
+    depth, t_first, n_first, batch = 0, None, 1, []
     step = chunk if chunk > 1 and not mono else 1
     t0 = time.perf_counter()
-    for i in range(0, len(gt), step):
+    for j, (il, ir, pos) in enumerate(src):
+        gt[j] = pos
+        batch.append((il, ir, j * FRAME_DT))
+        if len(batch) < step and j < n - 1:
+            continue
+        i = j + 1 - len(batch)
         if mono:
-            call(i, lambda: slam.process_mono(L[i], i * FRAME_DT))
+            call(i, lambda: slam.process_mono(il, i * FRAME_DT))
         elif step > 1:
-            call(i, lambda: slam.process_stereo_chunk(
-                [(L[j], R[j], j * FRAME_DT)
-                 for j in range(i, min(i + step, len(gt)))]))
+            call(i, lambda: slam.process_stereo_chunk(batch))
         else:
-            call(i, lambda: slam.process_stereo(L[i], R[i], i * FRAME_DT))
+            call(i, lambda: slam.process_stereo(il, ir, i * FRAME_DT))
         depth = max(depth, len(slam._inflight))
         if i == 0:
             sync()
-            t_first = time.perf_counter()
-            n_first = min(step, len(gt))
+            t_first, n_first = time.perf_counter(), len(batch)
+        batch = []
     slam.flush()
     sync()
     t_end = time.perf_counter()
-    n = len(gt)
     row = dict(
         ate=trajectory_ate(slam.logger, gt, mono), frames=n,
         logged=len(slam.logger.times), keyframes=len(slam.map.keyframes),
@@ -326,47 +470,90 @@ def deterministic(ops: set):
             warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
 
 
+def timing_span_ba(slam, sync=None) -> list:
+    """Record the host seconds of each of the system's span BAs (the card
+    synchronised around it) in the returned list."""
+    sync = sync or (lambda: None)
+    est, real, secs = slam.estimator, slam.estimator.span_ba, []
+
+    def timed(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        return out
+    est.span_ba = timed
+    return secs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", choices=("torch", "jax"), default="torch")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     ap.add_argument("--frames", type=int, default=120)
-    ap.add_argument("--tiers", default=",".join(list(TIERS) + list(OAB)))
+    ap.add_argument("--tiers", default=",".join(
+        [n for n, t in TIERS.items() if t is None or t.frames <= HARD_N]
+        + list(OAB)))
     ap.add_argument("--chunk", type=int, default=1,
                     help="stereo frames per process_stereo_chunk call")
     ap.add_argument("--out", type=Path, help="also append the lines here")
     args = ap.parse_args()
     names = args.tiers.split(",")
-    n_hard = max([HARD_N if n == "accurate_stereo" else args.frames
-                  for n in names if TIERS.get(n)], default=0)
-    hard = hard_frames(n_hard) if n_hard else None
-    sync = None
+    sync, cuda = None, False
     if args.backend == "torch":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         import torch
         torch.set_num_threads(min(torch.get_num_threads(), 8))
-        if args.device is None or str(args.device).startswith("cuda"):
+        cuda = args.device is None or str(args.device).startswith("cuda")
+        if cuda:
             sync = torch.cuda.synchronize
     oab = oab_frames() if any(n in OAB for n in names) else None
+    cache = {}
+
+    def seq_key(name):
+        t = TIERS.get(name)
+        return t and (t.frames or HARD_N, t.dataset, t.traj)
+
+    def frames_of(name):
+        """The tier's frames; a hard sequence of at most HARD_N frames is
+        rendered once, as long as its longest tier needs."""
+        t, key = TIERS[name], seq_key(name)
+        if t is None or t.frames > HARD_N:
+            return tier_frames(name, args.frames)
+        if key not in cache:
+            cache.clear()
+            need = max(TIERS[m].frames or args.frames
+                       for m in names if seq_key(m) == key)
+            cache[key] = tier_frames(name, need)
+        return tuple(x[:t.frames or args.frames] for x in cache[key])
+
     for name in names:
+        t = TIERS.get(name)
         d = oab_dict(name) if name in OAB else tier_dict(name)
         ops = set()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
         with (deterministic(ops) if args.backend == "torch"
               and d.get("buse_loop_closer") else contextlib.nullcontext()):
             if name in OAB:
                 slam = make_system(args.backend, d, args.device)
                 row = run_oab(slam, name, oab, sync=sync)
             else:
-                n = HARD_N if name == "accurate_stereo" else args.frames
-                frames = (tuple(x[:n] for x in hard) if TIERS[name]
-                          else kf2f_frames(BENCH_FRAMES if name == "bench"
-                                           else KF2F_FRAMES))
-                slam = make_system(args.backend, d, args.device,
-                                   LC_DETECTOR if d.get("buse_loop_closer") else None)
+                frames = frames_of(name)
+                detector = (LC_DETECTOR if d.get("buse_loop_closer")
+                            and not (t and t.stock_lc) else None)
+                slam = make_system(args.backend, d, args.device, detector)
+                span = timing_span_ba(slam, sync)
                 row = run_tier(slam, frames, bool(d.get("mono")), sync=sync,
                                chunk=args.chunk)
+                row.update(span_ba_seconds=span,
+                           ba_timeouts=slam.estimator.n_ba_timeouts,
+                           ba_truncations=slam.estimator.n_truncations)
         row = dict(tier=name, backend=args.backend, chunk=args.chunk, **row)
+        if cuda:
+            row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         if ops:
             row["nondeterministic_ops"] = sorted(ops)
         line = json.dumps(row)

@@ -149,11 +149,16 @@ def render_view(tex1, tex2, T_cw, plane_z=8.0, plane2_z=5.0, plane2_hw=2.5):
     return np.where(mask, img2, img).astype(np.float32)
 
 
-def render_sequence(n_frames=60, seed=0, plane_z=8.0, step=0.04, yaw_rate=0.002):
-    """Returns (frames_left, frames_right, gt poses camera-to-world)."""
+def render_sequence(n_frames=60, seed=0, plane_z=8.0, step=0.04, yaw_rate=0.002,
+                    frames=None):
+    """Returns (frames_left, frames_right, gt poses camera-to-world); with
+    `frames` (indices into the n_frames) only those frames, in that order,
+    so that worker processes can split one sequence."""
     tex = make_texture(seed)
     tex2 = make_texture(seed + 100)
     poses_wc = make_trajectory(n_frames, step, yaw_rate)
+    if frames is not None:
+        poses_wc = [poses_wc[i] for i in frames]
     T_rl = np.eye(4)
     T_rl[0, 3] = -BASELINE
     out_l, out_r = [], []

@@ -134,6 +134,38 @@ def test_klt_track_matches_plain_on_card(cuda, frames, N, pair, jitter):
                                rp.error.cpu().numpy()[both], atol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def kitti_frames(cuda):
+    """Frames 0-1 of the KITTI rig's hard sequence (1241x376: level widths
+    1241, 621, 311, 156)."""
+    import hard_synthetic_np as hs
+    seq = list(hs.render_hard_sequence(1000, cam=hs.CAM_KITTI, frames=[0, 1]))
+    return [f[0] for f in seq], [f[1] for f in seq]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [0.0, 1.5])
+def test_klt_track_matches_plain_on_kitti_rig(cuda, kitti_frames, jitter):
+    """Odd level widths and row strides: the KITTI preset's kp_cap (448),
+    4 pyramid levels and 35 px grid."""
+    args, kw = klt_inputs.klt_case(kitti_frames, 448, "temporal", jitter,
+                                   cuda, nlevels=3, cell=35)
+    assert [tuple(a.shape) for a in args[0]] == [
+        (376, 1241), (188, 621), (94, 311), (47, 156)]
+    before = klt.LAUNCHES
+    r = klt.fb_klt_tracking(*args, **kw)
+    rp = klt.fb_klt_tracking_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES == before + 1
+    s, sp = r.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert sp.sum() > 100 and (s == sp).mean() >= 0.99
+    both = s & sp
+    np.testing.assert_allclose(r.points.cpu().numpy()[both],
+                               rp.points.cpu().numpy()[both], atol=2e-3)
+    np.testing.assert_allclose(r.error.cpu().numpy()[both],
+                               rp.error.cpu().numpy()[both], atol=1e-3)
+
+
 @pytest.mark.cuda
 def test_klt_track_empty_and_invalid(cuda, frames):
     args, kw = klt_inputs.klt_case(frames, 192, "temporal", 1.5, cuda)
