@@ -35,7 +35,28 @@
 // skipped. The per-chunk path (lk_iterate.cu inside the PyTorch glue of
 // fb_klt_tracking_plain) takes ~580 eager launches of glue around its 8
 // kernel launches per call; this is one launch.
+//
+// Plane types. The front end stores its pyramids and gradient pyramids in
+// float16, as the JAX package does (frontend.PYR_DT), and the kernel reads
+// them as they are: it is instantiated for float and for __half planes,
+// and the table's elem_bytes picks one at launch. Only the staging
+// differs. Everything after it is float32: the windows in shared memory,
+// the samples, the sums and the GN steps, as the JAX package casts each
+// gathered window to float32. cp.async copies 4, 8 or 16 bytes from a
+// source aligned to that size, and a 2-byte element at an odd column, or
+// in a row of a plane with an odd row stride (the KITTI rig's levels are
+// 1241, 621 and 311 wide), is not 4-byte aligned. So a float16 window is
+// not copied by cp.async: each lane loads its elements through the
+// read-only path (ld.global.nc, __ldg) into registers, all the windows of
+// one staging at once so that they cost about one round trip, and stores
+// them converted by __half2float into the float32 window. That takes any
+// origin and any row stride and keeps shared memory at the float32
+// windows' 4 warps x 4 x ws^2 x 4 B (25.6 KB at win = 9). Staging aligned
+// 4-byte words and dropping a leading half by parity would need a float16
+// copy of each window beside the float32 one; TMA would need 16-byte row
+// strides, which these widths do not have.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,9 +68,10 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxLevels = 8;
 constexpr int kMaxSmemBytes = 48 * 1024;
 
-// One row-major float32 image plane in device memory.
+// One row-major image plane in device memory (float or __half elements,
+// the table's elem_bytes).
 struct Plane {
-  const float* data;
+  const void* data;
   int h, w, stride;   // rows, columns, elements between rows
 };
 
@@ -63,6 +85,7 @@ struct LevelTable {
   Plane next_img[kMaxLevels];
   Plane next_gx0;
   Plane next_gy0;
+  int elem_bytes;     // 4: float planes, 2: __half planes
 };
 
 // Start copying the ws x ws window at (ox, oy) of a plane into shared
@@ -72,7 +95,7 @@ struct LevelTable {
 __device__ __forceinline__ void stage_window(float* dst, const Plane& p,
                                              int ox, int oy, int ws,
                                              int lane) {
-  const float* src = p.data + (size_t)oy * p.stride + ox;
+  const float* src = (const float*)p.data + (size_t)oy * p.stride + ox;
   int r = lane / ws, c = lane - r * ws;
   for (int i = lane; i < ws * ws; i += 32) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
@@ -93,14 +116,105 @@ __device__ __forceinline__ void wait_staged() {
   __syncwarp();
 }
 
+// NW ws x ws windows of __half planes into float32 windows in shared
+// memory (window w at (ox[w], oy[w]) of p[w] into dst[w]): each round
+// loads 32 / NW elements per lane of every window into registers, then
+// stores them converted; at ws = 20 the four windows of a level's first
+// staging take two rounds, a single window one. Returns when the warp's
+// stores are visible to the warp.
+template <int NW>
+__device__ __forceinline__ void stage_half(float* const (&dst)[NW],
+                                           const Plane (&p)[NW],
+                                           const int (&ox)[NW],
+                                           const int (&oy)[NW], int ws,
+                                           int lane) {
+  constexpr int kSlots = 32 / NW;
+  const int wsz = ws * ws;
+  for (int base = lane; base < wsz; base += 32 * kSlots) {
+    float v[NW][kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = base + 32 * s;
+      const int r = i / ws, c = i - r * ws;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const __half* src = (const __half*)p[w].data +
+                            (size_t)(oy[w] + r) * p[w].stride + ox[w] + c;
+        v[w][s] = i < wsz ? __half2float(__ldg(src)) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int i = base + 32 * s;
+      if (i < wsz) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) dst[w][i] = v[w][s];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Staging by plane type: the three template planes at (ox0, oy0) and the
+// first next-image window at (ox1, oy1) in one round trip (`level`), or
+// one next-image window (`window`). Both return with the windows visible
+// to the warp.
+template <typename T>
+struct Stage;
+
+template <>
+struct Stage<float> {
+  static __device__ __forceinline__ void level(
+      float* sm_t, float* sm_n, const Plane& img0, const Plane& gx0,
+      const Plane& gy0, const Plane& img1, int ox0, int oy0, int ox1,
+      int oy1, int ws, int lane) {
+    const int wsz = ws * ws;
+    stage_window(sm_t, img0, ox0, oy0, ws, lane);
+    stage_window(sm_t + wsz, gx0, ox0, oy0, ws, lane);
+    stage_window(sm_t + 2 * wsz, gy0, ox0, oy0, ws, lane);
+    stage_window(sm_n, img1, ox1, oy1, ws, lane);
+    wait_staged();
+  }
+  static __device__ __forceinline__ void window(float* sm_n,
+                                                const Plane& img1, int ox1,
+                                                int oy1, int ws, int lane) {
+    stage_window(sm_n, img1, ox1, oy1, ws, lane);
+    wait_staged();
+  }
+};
+
+template <>
+struct Stage<__half> {
+  static __device__ __forceinline__ void level(
+      float* sm_t, float* sm_n, const Plane& img0, const Plane& gx0,
+      const Plane& gy0, const Plane& img1, int ox0, int oy0, int ox1,
+      int oy1, int ws, int lane) {
+    const int wsz = ws * ws;
+    float* const dst[4] = {sm_t, sm_t + wsz, sm_t + 2 * wsz, sm_n};
+    const Plane p[4] = {img0, gx0, gy0, img1};
+    const int ox[4] = {ox0, ox0, ox0, ox1}, oy[4] = {oy0, oy0, oy0, oy1};
+    stage_half<4>(dst, p, ox, oy, ws, lane);
+  }
+  static __device__ __forceinline__ void window(float* sm_n,
+                                                const Plane& img1, int ox1,
+                                                int oy1, int ws, int lane) {
+    float* const dst[1] = {sm_n};
+    const Plane p[1] = {img1};
+    const int ox[1] = {ox1}, oy[1] = {oy1};
+    stage_half<1>(dst, p, ox, oy, ws, lane);
+  }
+};
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
 // One pyramid level of windowed LK for one keypoint
 // (ops/klt.py::_track_level): template at (tx, ty) in img0/gx0/gy0, GN from
-// (px, py) in img1. Updates (px, py); returns ok = track & in_bounds1. With
-// `want_err`, *err receives mean |I - T| in the last chunk's window.
+// (px, py) in img1, planes of element type T. Updates (px, py); returns
+// ok = track & in_bounds1. With `want_err`, *err receives mean |I - tmpl| in
+// the last chunk's window.
+template <typename T>
 __device__ bool track_level(float* sm_t, float* sm_n,
                             const lkc::LaneSamples& ls, const Plane& img0,
                             const Plane& gx0, const Plane& gy0,
@@ -125,11 +239,8 @@ __device__ bool track_level(float* sm_t, float* sm_n,
 
   // the template planes and the first chunk's window, in one round trip
   __syncwarp();   // the warp is done reading the previous windows
-  stage_window(sm_t, img0, ox0, oy0, ws, lane);
-  stage_window(sm_t + wsz, gx0, ox0, oy0, ws, lane);
-  stage_window(sm_t + 2 * wsz, gy0, ox0, oy0, ws, lane);
-  stage_window(sm_n, img1, ox1, oy1, ws, lane);
-  wait_staged();
+  Stage<T>::level(sm_t, sm_n, img0, gx0, gy0, img1, ox0, oy0, ox1, oy1, ws,
+                  lane);
   float t[lkc::kMaxSamplesPerLane], gx[lkc::kMaxSamplesPerLane],
       gy[lkc::kMaxSamplesPerLane];
   const float qx0 = tx - (float)ox0, qy0 = ty - (float)oy0;
@@ -163,8 +274,7 @@ __device__ bool track_level(float* sm_t, float* sm_n,
       // a frozen point needs its window only for the error
       if (!act && !(want_err && last)) continue;
       __syncwarp();
-      stage_window(sm_n, img1, ox1, oy1, ws, lane);
-      wait_staged();
+      Stage<T>::window(sm_n, img1, ox1, oy1, ws, lane);
     }
     conv_total |= lkc::gn_steps(
         sm_n, ws, ls, t, gx, gy, Gxx, Gxy, Gyy, invd, (float)ox1, (float)oy1,
@@ -186,6 +296,7 @@ __device__ bool track_level(float* sm_t, float* sm_n,
   return track && in1;
 }
 
+template <typename T>
 __global__ void klt_track_kernel(
     const LevelTable tbl,
     const float* __restrict__ prev_pts,   // (N, 2) level-0 positions
@@ -215,7 +326,7 @@ __global__ void klt_track_kernel(
   float err = 0.f;
   for (int l = nlevels; l >= 0; --l) {
     const float s = (float)(1 << l);
-    status = track_level(sm_t, sm_n, ls, tbl.prev_img[l], tbl.prev_gx[l],
+    status = track_level<T>(sm_t, sm_n, ls, tbl.prev_img[l], tbl.prev_gx[l],
                          tbl.prev_gy[l], tbl.next_img[l], x0 / s, y0 / s, px,
                          py, v, win, max_iters, l == nlevels ? n_chunks : 1,
                          eps2, min_eig_th, l == 0, &err, lane) &&
@@ -229,7 +340,7 @@ __global__ void klt_track_kernel(
   bool ok = false;
   if (status && err < max_err) {   // good: the backward track decides
     float bx = x0, by = y0;
-    const bool okb = track_level(
+    const bool okb = track_level<T>(
         sm_t, sm_n, ls, tbl.next_img[0], tbl.next_gx0, tbl.next_gy0,
         tbl.prev_img[0], px, py, bx, by, true, win, max_iters,
         min(n_chunks, 2), eps2, min_eig_th, false, nullptr, lane);
@@ -252,7 +363,8 @@ extern "C" int klt_track_table_bytes() { return (int)sizeof(LevelTable); }
 extern "C" int klt_track_max_levels() { return kMaxLevels; }
 
 // Host launcher: `table` points to a LevelTable in host memory, copied into
-// the kernel's parameters. Returns a cudaError_t (0 on success).
+// the kernel's parameters; its elem_bytes picks the float or the __half
+// instantiation. Returns a cudaError_t (0 on success).
 extern "C" int klt_track_launch(
     const void* table, const void* prev_pts, const void* prior,
     const void* valid, void* out_pts, void* out_status, void* out_err,
@@ -265,10 +377,14 @@ extern "C" int klt_track_launch(
   const int ws = win + 11;
   const size_t smem = (size_t)kWarpsPerBlock * 4 * ws * ws * sizeof(float);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const LevelTable& tbl = *(const LevelTable*)table;
   const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  klt_track_kernel<<<blocks, kWarpsPerBlock * 32, smem,
-                     (cudaStream_t)stream>>>(
-      *(const LevelTable*)table, (const float*)prev_pts, (const float*)prior,
+  decltype(&klt_track_kernel<float>) kernel = nullptr;
+  if (tbl.elem_bytes == 4) kernel = klt_track_kernel<float>;
+  if (tbl.elem_bytes == 2) kernel = klt_track_kernel<__half>;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kWarpsPerBlock * 32, smem, (cudaStream_t)stream>>>(
+      tbl, (const float*)prev_pts, (const float*)prior,
       (const uint8_t*)valid, (float*)out_pts, (uint8_t*)out_status,
       (float*)out_err, N, nlevels, win, max_iters, n_chunks, eps2,
       max_fb_dist, max_err, min_eig_th);

@@ -71,9 +71,10 @@ def frame_kps(kps, device=None) -> FrameKps:
 
 def fe_state(state, device=None, seed: int = 0) -> FEState:
     """JAX ``FEState`` -> port ``FEState``. Pyramids (the keyframe
-    templates too, where set) are converted to float32 (the JAX package may
-    store float16); the PRNG key becomes a seeded generator."""
-    lvl = lambda seq: tuple(tensor(a, device, torch.float32) for a in seq)  # noqa: E731
+    templates too, where set) keep their dtype (float16, both packages'
+    storage); the PRNG key becomes a seeded generator."""
+    lvl = lambda seq: tuple(  # noqa: E731
+        torch.as_tensor(np.array(a), device=device) for a in seq)
     dev = torch.device("cpu") if device is None else torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))

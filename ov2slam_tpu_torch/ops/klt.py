@@ -217,25 +217,31 @@ def fb_klt_tracking_plain(
     return KLTResult(points=fwd.points, status=ok, error=fwd.error)
 
 
+# the plane element types the kernel reads, by their size in bytes
+PLANE_DTYPES = {torch.float16: 2, torch.float32: 4}
+
+
 class Plane(ctypes.Structure):
-    """csrc/klt_track.cu ``Plane``: one row-major float32 image plane."""
+    """csrc/klt_track.cu ``Plane``: one row-major image plane."""
     _fields_ = [("data", ctypes.c_void_p), ("h", ctypes.c_int),
                 ("w", ctypes.c_int), ("stride", ctypes.c_int)]
 
 
 class LevelTable(ctypes.Structure):
-    """csrc/klt_track.cu ``LevelTable``: the pyramids the kernel reads."""
+    """csrc/klt_track.cu ``LevelTable``: the pyramids the kernel reads, all
+    of one element type (``elem_bytes``: 2 for float16, 4 for float32)."""
     _fields_ = [("prev_img", Plane * MAX_LEVELS),
                 ("prev_gx", Plane * MAX_LEVELS),
                 ("prev_gy", Plane * MAX_LEVELS),
                 ("next_img", Plane * MAX_LEVELS),
-                ("next_gx0", Plane), ("next_gy0", Plane)]
+                ("next_gx0", Plane), ("next_gy0", Plane),
+                ("elem_bytes", ctypes.c_int)]
 
 
-def _plane(name: str, t: torch.Tensor, shape, device) -> Plane:
-    if t.dtype != torch.float32:
-        raise TypeError(f"fb_klt_tracking: {name} must be float32, "
-                        f"got {t.dtype}")
+def _plane(name: str, t: torch.Tensor, shape, device, dtype) -> Plane:
+    if t.dtype != dtype:
+        raise TypeError(f"fb_klt_tracking: {name} is {t.dtype}; every plane "
+                        f"of a call must be {dtype}")
     if t.device != device:
         raise ValueError(f"fb_klt_tracking: {name} is on {t.device}, "
                          f"expected {device}")
@@ -250,12 +256,17 @@ def _plane(name: str, t: torch.Tensor, shape, device) -> Plane:
 
 def level_table(prev_pyr, next_pyr, prev_grad_pyr, next_grad0, nlevels: int,
                 win: int, device) -> LevelTable:
-    """The kernel's level table, after checking every plane it names:
-    float32, contiguous, on `device`, prev/next and gradients of one shape
+    """The kernel's level table, after checking every plane it names: all
+    of one dtype, float16 or float32 (prev_pyr[0]'s, which the table
+    records), contiguous, on `device`, prev/next and gradients of one shape
     per level, each level at least one window (win + 11) wide and high.
     Gradients given as None are left null: the kernel's wrapper computes
     them before it builds the table, the plain version on the CPU itself."""
     ws = win + 11
+    dtype = prev_pyr[0].dtype
+    if dtype not in PLANE_DTYPES:
+        raise TypeError(f"fb_klt_tracking: planes must be float16 or "
+                        f"float32, got {dtype}")
     if not 0 <= nlevels < MAX_LEVELS:
         raise ValueError(f"fb_klt_tracking: nlevels={nlevels} outside "
                          f"[0, {MAX_LEVELS - 1}]")
@@ -265,28 +276,34 @@ def level_table(prev_pyr, next_pyr, prev_grad_pyr, next_grad0, nlevels: int,
             raise ValueError(f"fb_klt_tracking: {name} has {len(pyr)} "
                              f"levels, nlevels={nlevels} needs {nlevels + 1}")
     tbl = LevelTable()
+    tbl.elem_bytes = PLANE_DTYPES[dtype]
     for lvl in range(nlevels + 1):
         shape = tuple(prev_pyr[lvl].shape)
         tbl.prev_img[lvl] = _plane(f"prev_pyr[{lvl}]", prev_pyr[lvl], None,
-                                   device)
+                                   device, dtype)
         if shape[0] < ws or shape[1] < ws:
             raise ValueError(f"fb_klt_tracking: level {lvl} is {shape}, "
                              f"smaller than the {ws}x{ws} window")
         tbl.next_img[lvl] = _plane(f"next_pyr[{lvl}]", next_pyr[lvl], shape,
-                                   device)
+                                   device, dtype)
         if prev_grad_pyr is not None:
             gx, gy = prev_grad_pyr[lvl]
             tbl.prev_gx[lvl] = _plane(f"prev_grad_pyr[{lvl}][0]", gx, shape,
-                                      device)
+                                      device, dtype)
             tbl.prev_gy[lvl] = _plane(f"prev_grad_pyr[{lvl}][1]", gy, shape,
-                                      device)
+                                      device, dtype)
     if next_grad0 is not None:
         shape = tuple(prev_pyr[0].shape)
         tbl.next_gx0 = _plane("next_grad_pyr[0][0]", next_grad0[0], shape,
-                              device)
+                              device, dtype)
         tbl.next_gy0 = _plane("next_grad_pyr[0][1]", next_grad0[1], shape,
-                              device)
+                              device, dtype)
     return tbl
+
+
+def _stored_grads(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scharr gradients of plane `a`, computed in float32, in a's dtype."""
+    return tuple(g.to(a.dtype) for g in im.scharr_gradients(a.float()))
 
 
 def _kernel_fn():
@@ -327,10 +344,13 @@ def fb_klt_tracking(
     ``csrc/klt_track.cu`` launch for CUDA tensors, the plain version for
     CPU tensors.
 
-    prev_pyr / next_pyr: levels 0..nlevels of float32 (H, W) images;
+    prev_pyr / next_pyr: levels 0..nlevels of (H, W) images, float16 (the
+    front end's storage) or float32, one dtype for every plane of the call;
     prev_pts, prior_pts (N, 2) float32; valid (N,) bool. Gradient pyramids
     (lists of (gx, gy) per level) are optional: without them the Scharr
-    gradients are computed here (only next_grad_pyr[0] is read)."""
+    gradients are computed here, in float32 from the planes, and stored in
+    their dtype (only next_grad_pyr[0] is read). Windows are gathered in
+    the planes' dtype and every sample, sum and GN step runs in float32."""
     global LAUNCHES
     prev_pyr = list(prev_pyr)
     next_pyr = list(next_pyr)
@@ -363,10 +383,12 @@ def fb_klt_tracking(
             next_grad_pyr, n_chunks)
     if dev.type != "cuda":
         raise ValueError(f"fb_klt_tracking: no kernel for device {dev}")
+    # gradients made here are computed in float32 and stored in the planes'
+    # dtype, as the plain version (and the JAX package) does
     if prev_grad is None:
-        prev_grad = [im.scharr_gradients(a) for a in prev_pyr[:nlevels + 1]]
+        prev_grad = [_stored_grads(a) for a in prev_pyr[:nlevels + 1]]
     if next_grad0 is None:
-        next_grad0 = im.scharr_gradients(next_pyr[0])
+        next_grad0 = _stored_grads(next_pyr[0])
     tbl = level_table(prev_pyr, next_pyr, prev_grad, next_grad0, nlevels,
                       win, dev)
     out_pts = torch.empty((N, 2), dtype=torch.float32, device=dev)

@@ -28,24 +28,58 @@ from ov2slam_tpu_torch.device import select
 from ov2slam_tpu_torch.ops import fivepoint
 
 
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x * y + z rounded once to float32, a fused multiply-add: float64
+    holds the product of two float32 values exactly."""
+    return torch.addcmul(z.double(), x.double(), y.double()).float()
+
+
+def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sum_k u_k v_k over the last axis (3) as a chain of fused
+    multiply-adds from u_0 v_0."""
+    acc = u[..., 0] * v[..., 0]
+    acc = _fma(u[..., 1], v[..., 1], acc)
+    return _fma(u[..., 2], v[..., 2], acc)
+
+
 def triangulate_midpoint(T_ab: SE3, bv_a: torch.Tensor, bv_b: torch.Tensor
                          ) -> torch.Tensor:
     """Midpoint triangulation in frame a (opengv triangulate2 semantics,
     reference: multi_view_geometry.cpp:53-136). T_ab is the b-to-a
-    transform; bv_a/bv_b (..., 3) unit bearings. Returns (..., 3) in a."""
+    transform; bv_a/bv_b (..., 3) unit bearings. Returns (..., 3) in a.
+
+    The 2x2 normal equations cancel: their determinant is about the
+    squared ray angle (2e-4 for a 0.11 m baseline at 8 m), so one float32
+    rounding in it moves a depth by up to 0.3%. The function therefore
+    rounds as the JAX package's compiled one does on the CPU, where XLA
+    fuses each multiply into the add or subtract that takes it: dot
+    products as chains of fused multiply-adds, the determinant and both
+    numerators with one product fused, the output as two fused steps.
+    From the same inputs the two packages then give the same points, bit
+    for bit (``tests/test_torch_mvg.py``).
+
+    Each fused step goes through float64, so a call takes several times
+    the device operations of a float64 solve of the whole system (one cast
+    in, one out). That solve would put the points nearer the truth, and the
+    CPU parity tests pass with it; but it moves the trajectories on the card
+    by as much as any last-bit change does (ROADMAP C/R6), and on an
+    NVIDIA H100 it put ``accurate_stereo_nolc`` past the ATE bound the
+    smoke holds it to (``PERF.md`` §6). The port keeps the reference's
+    rounding until the reference's own triangulation changes (ROADMAP
+    C/P1)."""
     r1 = bv_a
-    r2 = torch.einsum("...ij,...j->...i", T_ab.R, bv_b)
+    r2 = torch.stack([_dot3(T_ab.R[..., i, :], bv_b) for i in range(3)], -1)
     o2 = T_ab.t
-    a = torch.sum(r1 * r1, dim=-1)
-    b = -torch.sum(r1 * r2, dim=-1)
-    c = torch.sum(r2 * r2, dim=-1)
-    e1 = torch.sum(r1 * o2, dim=-1)
-    e2 = -torch.sum(r2 * o2, dim=-1)
-    det = a * c - b * b
+    a = _dot3(r1, r1)
+    b = -_dot3(r1, r2)
+    c = _dot3(r2, r2)
+    e1 = _dot3(r1, o2)
+    e2 = -_dot3(r2, o2)
+    det = _fma(a, c, -(b * b))
     det = torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
-    d1 = (c * e1 - b * e2) / det
-    d2 = (a * e2 - b * e1) / det
-    return 0.5 * (r1 * d1[..., None] + o2 + r2 * d2[..., None])
+    d1 = _fma(c, e1, -(b * e2)) / det
+    d2 = _fma(-b, e1, a * e2) / det
+    return 0.5 * _fma(r1, d1[..., None], _fma(r2, d2[..., None], o2))
 
 
 def essential_from_pose(T_ab: SE3) -> torch.Tensor:

@@ -72,7 +72,13 @@ def _fields(state: fe.FEState, names) -> Tuple[torch.Tensor, ...]:
 
 
 def _copy_into(dst, src):
+    """Copy each source tensor into its buffer (clones of the state they
+    were captured with, so of its dtypes: float16 pyramids); a dtype that
+    differs raises instead of casting."""
     for d, s in zip(dst, src):
+        if d.dtype != s.dtype:
+            raise TypeError(f"frame graphs: a {s.dtype} state tensor for a "
+                            f"{d.dtype} buffer")
         if d is not s:
             d.copy_(s)
 

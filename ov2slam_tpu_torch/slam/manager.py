@@ -555,7 +555,7 @@ class SlamSystem:
         local-map matching then re-associates landmarks."""
         p = self.params
         d = self.device
-        img = self.fe_state.pyr[0]
+        img = self.fe_state.pyr[0].float()   # the state stores PYR_DT
         det = det_mod.grid_select(
             det_mod.min_eig_response(img), torch.zeros((8, 2), device=d),
             torch.zeros(8, dtype=torch.bool, device=d), p.nmaxdist,
@@ -769,10 +769,9 @@ class SlamSystem:
             # detector choice of map_manager.cpp:300-322
             detector = ("gftt" if p.use_shi_tomasi
                         else "fast" if p.use_fast else "singlescale")
-            right_pyr = (fe_mod.preprocess(self._to_device_u8(imr),
-                                           p.nklt_pyr_lvl, p.use_clahe,
-                                           p.fclahe_val)
-                         if stereo else self.fe_state.pyr)
+            right_pyr = (fe_mod.cast_pyr(fe_mod.preprocess(
+                self._to_device_u8(imr), p.nklt_pyr_lvl, p.use_clahe,
+                p.fclahe_val)) if stereo else self.fe_state.pyr)
             lm_pos, lm_is3d = self.map.device_landmarks()
             d = self.device
             quality = (float(p.nfast_th) if detector == "fast"

@@ -33,7 +33,9 @@ graph's warm-up and capture too, and by the frame step's graph replays).
 
 The accounting, ``bench.py``'s ``perf_accounting`` on the card, after the
 timed passes on the last pass's state (CUDA events; bench.py's XLA cost
-analysis and TPU peaks have no counterpart here):
+analysis and TPU peaks have no counterpart here;
+``scripts/torch_profile_frame.py`` splits the real frames instead of a
+chain):
 
 * ``frame_step_device_ms``: ``frontend.frame_step`` as the CUDA graphs of
   ``slam/graphs.py``, replayed over the sequence's last four frames in a
@@ -42,9 +44,10 @@ analysis and TPU peaks have no counterpart here):
   that the epipolar filter's 5-point RANSAC ran), and beside it
   ``frame_step_eager_ms``, the same chain of eager steps;
 * ``per_stage_ms``: ``preprocess_grads`` (pyramid and Scharr gradients of
-  one frame, one graph), ``fb_klt`` (one ``klt_track`` launch by graph
-  replay: the state's keypoints tracked from the last frame into the one
-  before it) and ``pnp_ransac_other`` (the rest of the frame step);
+  one frame, stored float16, one graph), ``fb_klt`` (one ``klt_track``
+  launch on float16 planes by graph replay: the state's keypoints tracked
+  from the last frame into the one before it) and ``pnp_ransac_other``
+  (the rest of the frame step);
 * ``device_fps_upper_bound`` (1000 / frame_step_device_ms);
 * ``klt_bound_ms`` and ``klt_bound_share``: ``chip_smoke.klt_bound``'s
   least time for that call (its bytes over 3.35 TB/s or its operations
@@ -134,8 +137,12 @@ def profiled_pass(params, dev, fl, fr, chunk: int) -> dict:
     return out
 
 
-def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
-    """bench.py's perf_accounting for the port (see the module docstring)."""
+def chained_ms(slam, fl) -> dict:
+    """The frame step from the system's state chained over the sequence's
+    last four frames (back three frames every fourth step):
+    ``frame_step_device_ms`` (graph replays, CUDA events), its
+    ``frame_step_gate_open_share`` and ``frame_step_eager_ms``; on the CPU
+    only the last, by host clock."""
     from ov2slam_tpu_torch.slam import frontend as fe
     state, kw = slam.fe_state, slam._step_kwargs()
     lm = slam.map.device_landmarks()
@@ -148,18 +155,13 @@ def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
         state, stats = fe.frame_step(state, imgs[k["i"] % 4], *lm, slam.cam_l, **kw)
         return stats
 
-    out = {}
-    if dev.type != "cuda":
+    if imgs[0].device.type != "cuda":
         reps = 2              # an eager step takes ~1 s on the CPU
         t0 = time.perf_counter()
         for _ in range(reps):
             eager()
-        out["frame_step_eager_ms"] = 1e3 * (time.perf_counter() - t0) / reps
-        out["profiler_mean_ms"] = profiled_pass(params, dev, fl, fr, chunk)
-        return out
-
+        return dict(frame_step_eager_ms=1e3 * (time.perf_counter() - t0) / reps)
     import chip_smoke as cs
-    from ov2slam_tpu_torch.ops import klt
     from ov2slam_tpu_torch.slam import graphs
     g = graphs.FrameGraphs(state, imgs[0], *lm, slam.cam_l, kw, use_kf=False)
 
@@ -168,16 +170,32 @@ def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
         return g.step(imgs[k["i"] % 4])
 
     ms_frame = cs.cuda_ms(replay, REPS)
-    gate_share = g.replays.get("filter", 0) / g.replays["back"]
-    ms_eager = cs.cuda_ms(eager, REPS // 5)
+    return dict(frame_step_device_ms=ms_frame,
+                frame_step_gate_open_share=(g.replays.get("filter", 0)
+                                            / g.replays["back"]),
+                frame_step_eager_ms=cs.cuda_ms(eager, REPS // 5))
+
+
+def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
+    """bench.py's perf_accounting for the port (see the module docstring)."""
+    from ov2slam_tpu_torch.slam import frontend as fe
+    kw = slam._step_kwargs()
+    out = chained_ms(slam, fl)
+    if dev.type != "cuda":
+        out["profiler_mean_ms"] = profiled_pass(params, dev, fl, fr, chunk)
+        return out
+
+    import chip_smoke as cs
+    from ov2slam_tpu_torch.ops import klt
+    imgs = [slam._to_device_u8(f) for f in fl[-4:]]
+    ms_frame = out["frame_step_device_ms"]
     levels, uc, cc = kw["levels"], kw["use_clahe"], kw["clahe_clip"]
-    ms_pre = cs.graph_ms(lambda: fe._grad_pyrs(
-        fe.preprocess(imgs[0], levels, uc, cc)), REPS)
+    ms_pre = cs.graph_ms(lambda: fe.stored_pyramids(imgs[0], levels, uc, cc),
+                         REPS)
     # the front end's call: the state's keypoints from the last frame into
-    # the frame before it, with both gradient pyramids
+    # the frame before it, with both gradient pyramids (float16, stored)
     st = slam.fe_state
-    prev_pyr = fe.preprocess(imgs[-2], levels, uc, cc)
-    pgx, pgy = fe._grad_pyrs(prev_pyr)
+    prev_pyr, pgx, pgy = fe.stored_pyramids(imgs[-2], levels, uc, cc)
     args = (list(st.pyr), list(prev_pyr), st.kps.px.contiguous(),
             st.kps.px.contiguous(), st.kps.valid.contiguous())
     kkw = dict(nlevels=levels, win=kw["nklt_win"],
@@ -186,8 +204,6 @@ def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
     ms_klt = cs.graph_ms(lambda: klt.fb_klt_tracking(*args, **kkw), REPS)
     b_ms, b_by, nbytes, ops, _ = cs.klt_bound(args, kkw)
     out.update(
-        frame_step_device_ms=ms_frame,
-        frame_step_eager_ms=ms_eager, frame_step_gate_open_share=gate_share,
         per_stage_ms={
             "preprocess_grads": ms_pre,
             "fb_klt": ms_klt,

@@ -55,7 +55,12 @@ a run repeats as long as the span BA's wall-clock budget does not cut it.
 Each line: the tier, its ATE (m; Sim(3)-aligned for mono, SE(3) for stereo)
 over the logged per-frame poses, frames, keyframes, 3D landmarks, the
 deepest in-flight FIFO, wall seconds and frames per second after the first
-frame (host clock, flush included); with the loop closer also the loop
+frame (host clock, flush included); ``scripts/hard_bench.py``'s row fields
+(``latency_fields``): ``fps_steady`` after ``WARMUP_FRAMES``,
+``frame_ms_p50`` / ``p90`` / ``p99`` of the calls after it (all calls when
+the run is no longer), split into keyframe calls (the map's keyframe count
+grew during the call) and cruise calls, ``warmup_s``, ``tracked_pct`` and
+the first call's ms; with the loop closer also the loop
 events, the ATE of the relaxed full trajectory
 (``ov2slam_full_traj_wlc_opt.txt``) and the seconds of ``write_results``;
 the kidnap run the relocalization error and the tracking-chain generation; a
@@ -87,6 +92,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 
 HARD_N, DIST, FRAME_DT = 1000, (-0.28, 0.07), 0.05
+# scripts/hard_bench.py's warm-up (its jit compiles); the port compiles
+# nothing, but its first frames capture CUDA graphs and build the place
+# index, and first_call_ms reports the first call apart
+WARMUP_FRAMES = 120
 
 
 class Tier(NamedTuple):
@@ -149,12 +158,13 @@ def dist_of(dataset: str) -> tuple:
     return (0.0, 0.0) if dataset == "tartanair" else DIST
 
 
-def tier_dict(name: str) -> dict:
-    """The SlamParams dict of a tier (see the module docstring)."""
+def tier_dict(name: str, tier: Optional[Tier] = None) -> dict:
+    """The SlamParams dict of a tier (see the module docstring), or of
+    `tier` in place of its entry in TIERS."""
     import hard_synthetic_np as hs
     import synthetic_np as syn
     from ov2slam_tpu_torch.config import load_opencv_yaml
-    t = TIERS[name]
+    t = TIERS[name] if tier is None else tier
     if t is None:
         d = syn.slam_params_dict()
         if name == "kf2f":
@@ -174,14 +184,46 @@ def tier_dict(name: str) -> dict:
     return d
 
 
-def _render(n: int, n_seq: int, dataset: str, traj: str, k: int = 0,
-            step: int = 1):
-    """Frames k, k + step, ... < n of the sequence, as (left uint8, right
-    uint8, gt position)."""
+def parse_value(v: str):
+    """A ``--set`` value: an int, else a float, else the string."""
+    for cast in (int, float):
+        try:
+            return cast(v)
+        except ValueError:
+            pass
+    return v
+
+
+def with_sets(name: str, sets) -> tuple:
+    """Tier `name` after ``--set knob=value`` overrides (the JAX tools'
+    ``--set``): a knob that names a ``Tier`` field replaces it (``frames``,
+    ``traj``, ``dataset``, ``preset_file``, ``stock_lc``, ...),
+    ``workers`` and ``seed`` are its ``HardStream``'s, any other is a key
+    of its SlamParams dict. Returns (tier, params dict, stream keywords)."""
+    t, params, stream = TIERS[name], {}, {}
+    for kv in sets:
+        k, v = kv.split("=", 1)
+        v = parse_value(v)
+        if k in ("workers", "seed"):
+            stream[k] = v
+        elif t is not None and k in Tier._fields:
+            t = t._replace(**{k: v})
+        else:
+            params[k] = v
+    d = tier_dict(name, t)
+    d.update(params)
+    return t, d, stream
+
+
+def _render(n: int, n_seq: int, dataset: str, traj: str, seed: int = 0,
+            k: int = 0, step: int = 1):
+    """Frames k, k + step, ... < n of the sequence (its world textured from
+    `seed`), as (left uint8, right uint8, gt position)."""
     import hard_synthetic_np as hs
     for il, ir, _, T_wc in hs.render_hard_sequence(
-            n_seq, dist=dist_of(dataset), cam=getattr(hs, CAMS[dataset]),
-            traj=traj, frames=range(k, n, step)):
+            n_seq, seed=seed, dist=dist_of(dataset),
+            cam=getattr(hs, CAMS[dataset]), traj=traj,
+            frames=range(k, n, step)):
         yield il.astype(np.uint8), ir.astype(np.uint8), T_wc[:3, 3]
 
 
@@ -202,15 +244,16 @@ class HardStream:
     again."""
 
     def __init__(self, n: int, n_seq: int = HARD_N, dataset: str = "euroc",
-                 traj: str = "loop", workers: int = None):
+                 traj: str = "loop", workers: int = None, seed: int = 0):
         self.n, self.n_seq, self.dataset, self.traj = n, n_seq, dataset, traj
+        self.seed = seed
         self.workers = max(1, min(workers or min(8, os.cpu_count() or 1), n))
 
     def __len__(self) -> int:
         return self.n
 
     def __iter__(self):
-        seq = (self.n, self.n_seq, self.dataset, self.traj)
+        seq = (self.n, self.n_seq, self.dataset, self.traj, self.seed)
         if self.workers == 1:
             yield from _render(*seq)
             return
@@ -249,16 +292,31 @@ def hard_frames(n: int, workers: int = None, **seq):
     return list(L), list(R), np.stack(gt)
 
 
-def tier_frames(name: str, n: int):
+def tier_frames(name: str, n: int, seed: int = 0):
     """A tier's frames: (left, right, gt) lists for the synthetic tiers and
     for hard-sequence runs of at most HARD_N frames, else a HardStream. `n`
-    is the prefix of a tier whose ``frames`` is 0."""
+    is the prefix of a tier whose ``frames`` is 0; `seed` textures a hard
+    sequence's world."""
     t = TIERS[name]
     if t is None:
         return kf2f_frames(BENCH_FRAMES if name == "bench" else KF2F_FRAMES)
-    seq = dict(n_seq=t.frames or HARD_N, dataset=t.dataset, traj=t.traj)
+    seq = dict(n_seq=t.frames or HARD_N, dataset=t.dataset, traj=t.traj,
+               seed=seed)
     n = t.frames or n
     return hard_frames(n, **seq) if n <= HARD_N else HardStream(n, **seq)
+
+
+def prefix_frames(name: str, tier: Optional[Tier], n: int,
+                  workers: int = None, seed: int = 0):
+    """The first n frames of tier `name`'s sequence (`tier` in place of its
+    entry in TIERS): the synthetic tiers' lists, else a HardStream over
+    the tier's hard sequence (``frames`` long, or HARD_N; its world
+    textured from `seed`)."""
+    if tier is None:
+        return kf2f_frames(n)
+    n_seq = tier.frames or HARD_N
+    return HardStream(min(n, n_seq), n_seq=n_seq, dataset=tier.dataset,
+                      traj=tier.traj, workers=workers, seed=seed)
 
 
 def _synthetic_part(args):
@@ -300,19 +358,60 @@ def trajectory_ate(logger, gt: np.ndarray, mono: bool) -> float:
                      gt, mono)
 
 
-def times_ate(times, positions, gt: np.ndarray, mono: bool) -> float:
-    """ATE of positions stamped with times (frame i at i * FRAME_DT)."""
-    from ov2slam_tpu_torch.io.trajectories import ate_rmse
-    n = len(gt)
+def stamped(times, positions, n: int) -> np.ndarray:
+    """(n, 3) positions by frame (frame i at time i * FRAME_DT), NaN where
+    none was logged."""
     est = np.full((n, 3), np.nan)
     for t, x in zip(times, positions):
         i = int(round(t / FRAME_DT))
         if 0 <= i < n:
             est[i] = x
+    return est
+
+
+def times_ate(times, positions, gt: np.ndarray, mono: bool) -> float:
+    """ATE of positions stamped with times (frame i at i * FRAME_DT)."""
+    from ov2slam_tpu_torch.io.trajectories import ate_rmse
+    est = stamped(times, positions, len(gt))
     ok = np.isfinite(est).all(axis=1)
     if ok.sum() <= 10:
         return float("nan")
     return ate_rmse(est[ok], gt[ok], with_scale=mono)
+
+
+def _percentiles(ms: np.ndarray, key: str) -> dict:
+    return {f"{key}_p{q}": (float(np.percentile(ms, q)) if len(ms) else None)
+            for q in (50, 90, 99)}
+
+
+def latency_fields(call_ms, call_first, call_kfs, n: int, seconds: float,
+                   t_warm: float) -> dict:
+    """``scripts/hard_bench.py``'s row fields from the host ms of each
+    ``process_*`` call (what a caller waits for), the first frame of each
+    call and the map's keyframe count after it: ``fps_steady`` over the
+    frames after WARMUP_FRAMES, ``frame_ms_p50`` / ``p90`` / ``p99`` (and
+    ``_max``) of the calls after it (of every call when the run is no
+    longer), the same for keyframe calls (``frame_ms_kf_*``: the keyframe
+    count grew during the call, as ``scripts/profile_tier.py`` splits them)
+    and cruise calls (``frame_ms_cruise_*``), ``warmup_s`` (seconds to the
+    end of frame WARMUP_FRAMES - 1; 0 when the run is shorter) and the
+    first call's ms. A call is one frame, or a chunk with
+    ``process_stereo_chunk``."""
+    ms = np.asarray(call_ms, np.float64)
+    first = np.asarray(call_first)
+    kf = np.zeros(len(ms), bool)
+    kf[1:] = np.diff(np.asarray(call_kfs)) > 0
+    steady = first >= WARMUP_FRAMES if n > WARMUP_FRAMES else np.ones(len(ms), bool)
+    fps_steady = ((n - WARMUP_FRAMES) / (seconds - t_warm)
+                  if n > WARMUP_FRAMES and seconds > t_warm else n / seconds)
+    out = dict(fps_steady=fps_steady, warmup_s=t_warm,
+               first_call_ms=float(ms[0]), steady_calls=int(steady.sum()),
+               steady_kf_calls=int((steady & kf).sum()),
+               frame_ms_max=float(ms[steady].max()))
+    out.update(_percentiles(ms[steady], "frame_ms"))
+    out.update(_percentiles(ms[steady & kf], "frame_ms_kf"))
+    out.update(_percentiles(ms[steady & ~kf], "frame_ms_cruise"))
+    return out
 
 
 def run_tier(slam, frames, mono: bool, call=None, sync=None,
@@ -321,7 +420,10 @@ def run_tier(slam, frames, mono: bool, call=None, sync=None,
     then flush. `call(i, fn)` wraps each call (default: fn()): each
     frame's, or with chunk > 1 (stereo) each ``process_stereo_chunk``
     call's, i its first frame; `sync()` waits for the device before the
-    clock is read. Returns the tier's numbers (fps after the first call)."""
+    clock is read. Returns the tier's numbers (fps after the first call;
+    the fields of ``latency_fields`` from each call's host time, no sync
+    added; in the pipelined mode the pose a call returns lags
+    ``pose_lag_frames`` frames, ``pipeline_depth``)."""
     if isinstance(frames, HardStream):
         n, src = len(frames), iter(frames)
     else:
@@ -330,6 +432,7 @@ def run_tier(slam, frames, mono: bool, call=None, sync=None,
     call = call or (lambda i, fn: fn())
     sync = sync or (lambda: None)
     depth, t_first, n_first, batch = 0, None, 1, []
+    call_ms, call_first, call_kfs, t_warm = [], [], [], 0.0
     step = chunk if chunk > 1 and not mono else 1
     t0 = time.perf_counter()
     for j, (il, ir, pos) in enumerate(src):
@@ -338,12 +441,19 @@ def run_tier(slam, frames, mono: bool, call=None, sync=None,
         if len(batch) < step and j < n - 1:
             continue
         i = j + 1 - len(batch)
+        tc = time.perf_counter()
         if mono:
             call(i, lambda: slam.process_mono(il, i * FRAME_DT))
         elif step > 1:
             call(i, lambda: slam.process_stereo_chunk(batch))
         else:
             call(i, lambda: slam.process_stereo(il, ir, i * FRAME_DT))
+        t_call = time.perf_counter()
+        call_ms.append(1e3 * (t_call - tc))
+        call_first.append(i)
+        call_kfs.append(len(slam.map.keyframes))
+        if i <= WARMUP_FRAMES - 1 <= j:
+            t_warm = t_call - t0
         depth = max(depth, len(slam._inflight))
         if i == 0:
             sync()
@@ -352,12 +462,19 @@ def run_tier(slam, frames, mono: bool, call=None, sync=None,
     slam.flush()
     sync()
     t_end = time.perf_counter()
+    est = stamped(slam.logger.times,
+                  [np.asarray(T)[:3, 3] for T in slam.logger.poses_wc], n)
     row = dict(
         ate=trajectory_ate(slam.logger, gt, mono), frames=n,
         logged=len(slam.logger.times), keyframes=len(slam.map.keyframes),
         landmarks=int(slam.map.n_3d()), max_inflight=depth,
         seconds=t_end - t0, fps=(n - n_first) / max(t_end - t_first, 1e-9),
-        initialized=bool(slam.initialized))
+        initialized=bool(slam.initialized),
+        tracked_pct=100.0 * float(np.isfinite(est).all(axis=1).mean()),
+        pose_lag_frames=(slam.params.pipeline_depth
+                         if slam.params.force_realtime else 0),
+        call_frames=step,
+        **latency_fields(call_ms, call_first, call_kfs, n, t_end - t0, t_warm))
     if slam.loopcloser is not None or slam.params.do_full_ba:
         row.update(final_passes(slam, gt, mono, sync))
     return row
@@ -499,6 +616,12 @@ def main() -> int:
     ap.add_argument("--chunk", type=int, default=1,
                     help="stereo frames per process_stereo_chunk call")
     ap.add_argument("--out", type=Path, help="also append the lines here")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="texture seed of the hard sequences' world")
+    ap.add_argument("--pyr-dtype", choices=("float16", "float32"),
+                    default="float16", help="the front end's pyramid "
+                    "storage in either package (float16 as shipped; "
+                    "float32 as a witness)")
     args = ap.parse_args()
     names = args.tiers.split(",")
     sync, cuda = None, False
@@ -509,24 +632,31 @@ def main() -> int:
         cuda = args.device is None or str(args.device).startswith("cuda")
         if cuda:
             sync = torch.cuda.synchronize
+        from ov2slam_tpu_torch.slam import frontend
+        frontend.PYR_DT = getattr(torch, args.pyr_dtype)
+    else:
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        import jax.numpy as jnp
+        import ov2slam_tpu.slam.frontend as jfrontend
+        jfrontend.PYR_DT = getattr(jnp, args.pyr_dtype)
     oab = oab_frames() if any(n in OAB for n in names) else None
     cache = {}
 
     def seq_key(name):
         t = TIERS.get(name)
-        return t and (t.frames or HARD_N, t.dataset, t.traj)
+        return t and (t.frames or HARD_N, t.dataset, t.traj, args.seed)
 
     def frames_of(name):
         """The tier's frames; a hard sequence of at most HARD_N frames is
         rendered once, as long as its longest tier needs."""
         t, key = TIERS[name], seq_key(name)
         if t is None or t.frames > HARD_N:
-            return tier_frames(name, args.frames)
+            return tier_frames(name, args.frames, args.seed)
         if key not in cache:
             cache.clear()
             need = max(TIERS[m].frames or args.frames
                        for m in names if seq_key(m) == key)
-            cache[key] = tier_frames(name, need)
+            cache[key] = tier_frames(name, need, args.seed)
         return tuple(x[:t.frames or args.frames] for x in cache[key])
 
     for name in names:
@@ -551,7 +681,8 @@ def main() -> int:
                 row.update(span_ba_seconds=span,
                            ba_timeouts=slam.estimator.n_ba_timeouts,
                            ba_truncations=slam.estimator.n_truncations)
-        row = dict(tier=name, backend=args.backend, chunk=args.chunk, **row)
+        row = dict(tier=name, backend=args.backend, chunk=args.chunk,
+                   seed=args.seed, pyr_dtype=args.pyr_dtype, **row)
         if cuda:
             row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         if ops:

@@ -11,6 +11,9 @@ OpenCV, no PyYAML), for the readers' and the CLI's tests and for
   and ``sensor.yaml``; KITTI odometry ``image_{0,1}/%06d.png`` with
   ``times.txt`` (``%e`` seconds) and ``calib.txt``; TartanAir
   ``image_{left,right}/%06d_{left,right}.png``.
+* ``write_euroc_groundtruth``: EuRoC's
+  ``mav0/state_groundtruth_estimate0/data.csv`` (ns stamps, positions,
+  unit quaternions), the file ``scripts/euroc_bench.py`` scores against.
 * ``write_opencv_yaml``: a flat SlamParams dict as an OpenCV-dialect YAML
   preset (``%YAML:1.0``, ``!!opencv-matrix`` for arrays) that both the JAX
   package's PyYAML loader and the port's own parser read to the same dict.
@@ -91,6 +94,21 @@ def write_euroc(root: str, left, right, stamps, right_stamps=None,
             f.write("sensor_type: camera\n")
         for img, t in zip(imgs, ts):
             write(os.path.join(d, f"{t}.png"), img)
+
+
+def write_euroc_groundtruth(root: str, stamps, positions):
+    """EuRoC's ground-truth CSV under `root`: position i (m) at stamps[i]
+    (ns), identity orientation, zero velocity and biases."""
+    d = os.path.join(root, "mav0", "state_groundtruth_estimate0")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "data.csv"), "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z [], v_RS_R_x [m s^-1], "
+                "v_RS_R_y [m s^-1], v_RS_R_z [m s^-1], b_w_RS_S_x [rad s^-1], "
+                "b_w_RS_S_y [rad s^-1], b_w_RS_S_z [rad s^-1], "
+                "b_a_RS_S_x [m s^-2], b_a_RS_S_y [m s^-2], b_a_RS_S_z [m s^-2]\n")
+        for t, (x, y, z) in zip(stamps, positions):
+            f.write(f"{t},{x:.9f},{y:.9f},{z:.9f},1,0,0,0" + ",0" * 9 + "\n")
 
 
 def write_kitti(root: str, left, right, times, write=write_png):

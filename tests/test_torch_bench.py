@@ -94,6 +94,22 @@ def test_stream_equals_render_hard_sequence():
         np.testing.assert_array_equal(pos, T_wc[:3, 3])
 
 
+def test_stream_seed_textures_another_world():
+    """``HardStream(seed=...)`` (``torch_preset_tiers.py --seed``) renders
+    ``render_hard_sequence(seed=...)``: the same camera path through a
+    world textured anew."""
+    import hard_synthetic_np as hs
+    got = list(tiers.HardStream(2, workers=1, seed=1))
+    ref = hs.render_hard_sequence(tiers.HARD_N, seed=1, frames=range(2))
+    base = list(tiers.HardStream(2, workers=1))
+    for (il, ir, pos), (rl, rr, _, T_wc), (bl, _, bpos) in zip(got, ref, base):
+        np.testing.assert_array_equal(il, rl.astype(np.uint8))
+        np.testing.assert_array_equal(ir, rr.astype(np.uint8))
+        np.testing.assert_array_equal(pos, T_wc[:3, 3])
+        np.testing.assert_array_equal(pos, bpos)
+        assert not np.array_equal(il, bl)
+
+
 def test_run_tier_over_a_stream_equals_lists():
     """The same frames through run_tier as a stream and as lists, one
     system each on the CPU: equal trajectories."""

@@ -166,6 +166,49 @@ def test_klt_track_matches_plain_on_kitti_rig(cuda, kitti_frames, jitter):
                                rp.error.cpu().numpy()[both], atol=1e-3)
 
 
+def _check_float16_case(args, kw):
+    """klt_track on float16 planes (the front end's storage) against the
+    plain version on the same planes: one launch, the tolerances above."""
+    assert all(a.dtype == torch.float16 for a in args[0] + args[1])
+    before = klt.LAUNCHES
+    r = klt.fb_klt_tracking(*args, **kw)
+    rp = klt.fb_klt_tracking_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES == before + 1
+    s, sp = r.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert sp.sum() > 100 and (s == sp).mean() >= 0.99
+    both = s & sp
+    np.testing.assert_allclose(r.points.cpu().numpy()[both],
+                               rp.points.cpu().numpy()[both], atol=2e-3)
+    np.testing.assert_allclose(r.error.cpu().numpy()[both],
+                               rp.error.cpu().numpy()[both], atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,jitter", [("temporal", 1.5), ("keyframe", 1.5),
+                                         ("stereo", 0.0)])
+def test_klt_track_on_float16_planes_matches_plain(cuda, frames, pair,
+                                                   jitter):
+    """The EuRoC rig at the slice's kp_cap; the stereo call computes its
+    gradients in float32 and stores them in float16."""
+    args, kw = klt_inputs.klt_case(frames, 192, pair, jitter, cuda,
+                                   dtype=torch.float16)
+    _check_float16_case(args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [0.0, 1.5])
+def test_klt_track_on_float16_planes_matches_plain_on_kitti_rig(
+        cuda, kitti_frames, jitter):
+    """Odd level widths and row strides leave 2-byte elements at addresses
+    no 4-byte copy may start from: the float16 staging takes them."""
+    args, kw = klt_inputs.klt_case(kitti_frames, 448, "temporal", jitter,
+                                   cuda, nlevels=3, cell=35,
+                                   dtype=torch.float16)
+    assert [a.stride(0) for a in args[0]] == [1241, 621, 311, 156]
+    _check_float16_case(args, kw)
+
+
 @pytest.mark.cuda
 def test_klt_track_empty_and_invalid(cuda, frames):
     args, kw = klt_inputs.klt_case(frames, 192, "temporal", 1.5, cuda)
@@ -609,6 +652,7 @@ def test_frame_step_graph_replay_equals_eager(cuda):
         assert torch.equal(st.gen.get_state(), g_eager)
         opened.append(cache.last.replays.get("filter", 0))
         assert torch.equal(new_g.kps.valid, new_e.kps.valid)
+        assert new_g.pyr[0].dtype == new_e.pyr[0].dtype == torch.float16
         np.testing.assert_allclose(s_g[0].cpu().numpy(), s_e.cpu().numpy(),
                                    atol=1e-5)
         np.testing.assert_allclose(new_g.R_cw.cpu().numpy(),

@@ -1,8 +1,10 @@
 """Forward-backward pyramidal KLT: the port against the JAX package on two
-rendered 752x480 frames of the synthetic sequence, both fed the same float32
-pyramids and gradient pyramids (the JAX package's own state stores float16;
-that storage difference is not the port's to answer for here), or both
-computing the gradients themselves (stereo matching passes none).
+rendered 752x480 frames of the synthetic sequence, both fed the same
+pyramids and gradient pyramids, float32 or float16 (the dtype both
+packages' front ends store them in: windows gathered in float16, all
+arithmetic in float32), or both computing the gradients themselves (stereo
+matching passes none: the gradients are taken in float32 and stored in the
+planes' dtype).
 
 On CPU tensors ``fb_klt_tracking`` runs ``fb_klt_tracking_plain`` and
 launches nothing; it checks its arguments on every device, as its kernel
@@ -73,6 +75,36 @@ def test_fb_klt_tracking_matches_jax(frames, pair, jitter):
     np.testing.assert_allclose(n(rt.error)[both], n(rj.error)[both], atol=1e-3)
 
 
+@pytest.mark.parametrize("pair,jitter", [("temporal", 0.0), ("temporal", 1.5),
+                                         ("stereo", 0.0)])
+def test_fb_klt_tracking_matches_jax_on_float16_pyramids(frames, pair, jitter):
+    """Both packages fed the same float16 pyramids (the stereo call: without
+    gradient pyramids, so each takes Scharr in float32 and stores float16)."""
+    fl, fr = frames
+    img0, img1 = (fl[0], fl[1]) if pair == "temporal" else (fl[0], fr[0])
+    pj0, pj1, gj0, gj1, pts, prior, valid = _case(img0, img1, jitter)
+    h = lambda seq: tuple(a.astype(jnp.float16) for a in seq)  # noqa: E731
+    pj0, pj1 = h(pj0), h(pj1)
+    gj0, gj1 = (tuple(h(g) for g in gj0), tuple(h(g) for g in gj1))
+    gkw = {} if pair == "stereo" else dict(prev_grad_pyr=gj0, next_grad_pyr=gj1)
+    rj = jklt.fb_klt_tracking(pj0, pj1, jnp.asarray(pts), jnp.asarray(prior),
+                              jnp.asarray(valid), nlevels=3, win=9, **gkw)
+    tp = lambda seq: tuple(torch.from_numpy(np.array(a)) for a in seq)  # noqa: E731
+    tkw = {} if pair == "stereo" else dict(
+        prev_grad_pyr=tuple(tp(g) for g in gj0),
+        next_grad_pyr=tuple(tp(g) for g in gj1))
+    p0, p1 = tp(pj0), tp(pj1)
+    assert p0[0].dtype == torch.float16
+    rt = tklt.fb_klt_tracking(p0, p1, t(pts), t(prior), t(valid), nlevels=3,
+                              win=9, **tkw)
+    st_j, st_t = n(rj.status), n(rt.status)
+    assert st_j.sum() > 50
+    assert (st_j == st_t).mean() >= 0.99
+    both = st_j & st_t
+    np.testing.assert_allclose(n(rt.points)[both], n(rj.points)[both], atol=1e-3)
+    np.testing.assert_allclose(n(rt.error)[both], n(rj.error)[both], atol=1e-3)
+
+
 def _torch_case(pj0, pj1, gj0, gj1, pts, prior, valid):
     tp = lambda seq: tuple(t(a) for a in seq)               # noqa: E731
     tg = lambda seq: tuple((t(a), t(b)) for a, b in seq)    # noqa: E731
@@ -136,15 +168,18 @@ def _noncontiguous(a):
     return a.t().contiguous().t()
 
 
-@pytest.mark.parametrize("bad", ["noncontiguous", "float16", "device",
+@pytest.mark.parametrize("bad", ["noncontiguous", "float64", "mixed", "device",
                                  "grad_device", "shape", "win17"])
 def test_fb_klt_tracking_rejects_what_the_kernel_does_not_take(bad):
+    """The kernel takes float16 or float32 planes, one dtype per call."""
     p0, p1, pts, valid = _small_case()
     kw = dict(nlevels=1)
     if bad == "noncontiguous":
         p1[1] = _noncontiguous(p1[1])
-    elif bad == "float16":
-        p0[0] = p0[0].half()
+    elif bad == "float64":
+        p0, p1 = [a.double() for a in p0], [a.double() for a in p1]
+    elif bad == "mixed":
+        p1[1] = p1[1].half()
     elif bad == "device":
         p1[0] = p1[0].to("meta")
     elif bad == "grad_device":
@@ -176,7 +211,13 @@ def test_level_table_layout():
     grads = [(a + 2.0, a + 3.0) for a in p0]
     tbl = tklt.level_table(p0, p1, grads, grads[0], nlevels=2, win=9,
                            device=torch.device("cpu"))
-    assert ctypes.sizeof(tbl) == (4 * tklt.MAX_LEVELS + 2) * 24
+    # the planes, then the element size (padded to the planes' alignment)
+    assert ctypes.sizeof(tbl) == (4 * tklt.MAX_LEVELS + 2) * 24 + 8
+    assert tbl.elem_bytes == 4
+    half = [a.half() for a in p0]
+    assert tklt.level_table(half, [a.half() for a in p1], None, None,
+                            nlevels=2, win=9,
+                            device=torch.device("cpu")).elem_bytes == 2
     for lvl in range(3):
         for plane, a in ((tbl.prev_img[lvl], p0[lvl]),
                          (tbl.next_img[lvl], p1[lvl]),

@@ -5,8 +5,9 @@ algebra of ``tests/test_e2e_stereo.py``.
 
 Both systems stage at the same fixed frame lags, so their keyframes land
 on the same frames: the keyframe timestamps must be equal. Trajectories
-are held as in ``test_torch_e2e.py`` (pyramids stored float16 in JAX,
-float32 in the port): ATE within 1 mm, every frame within 5 mm.
+are held as in ``test_torch_e2e.py`` (pyramids stored float16 in both,
+triangulations rounded alike, RANSAC draws and other sums not): ATE
+within 1 mm, every frame within 5 mm.
 """
 
 import numpy as np

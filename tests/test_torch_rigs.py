@@ -8,9 +8,9 @@ the KITTI 00-02 preset with ``bdo_stereo_rect``; ``tartanair_stereo``, the
 undistorted TartanAir rig), synchronous, loop closer and epipolar filter
 off, over the first frames of its hard sequence. Tolerances: the pyramid
 shapes equal; the first keyframe's keypoints, stereo matches and landmarks
-within 1% (a point at the edge of a gate may flip: the JAX package stores
-its pyramids in float16, ROADMAP C/P2); every pose within 1e-4 m (on these
-rigs the two packages' poses differ by ~1e-5 m).
+equal (both packages store their pyramids in float16, ROADMAP C/P2); every
+pose within 8e-5 m, tenfold the largest gap this CPU measured (KITTI
+1.1e-6 m, TartanAir 8.0e-6 m).
 """
 
 import sys
@@ -34,7 +34,7 @@ import torch_preset_tiers as tiers  # noqa: E402
 N_FRAMES = 3
 LEVELS = {"kitti_stereo": [(376, 1241), (188, 621), (94, 311), (47, 156)],
           "tartanair_stereo": [(480, 640), (240, 320), (120, 160), (60, 80)]}
-COUNT_TOL, POSE_TOL = 0.01, 1e-4
+COUNT_TOL, POSE_TOL = 0.0, 8e-5
 
 
 def _run(system, frames):
