@@ -218,6 +218,7 @@ import functools
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -272,6 +273,9 @@ KLT_DTYPES = (torch.float16, torch.float32)
 # sample (four hat weights, two taps per row, the blend, the residual and
 # two multiply-adds).
 HBM_BPS, F32_FLOPS, FLOPS_PER_SAMPLE = 3.35e12, 67e12, 30
+# the N = 1 chain of klt_track (one warp alone: its latency) at these
+# iteration budgets
+KLT_CHAIN_ITERS = (1, 10, 30)
 # RANSAC and CLAHE on the card vs the CPU (plain PyTorch both; cuSOLVER and
 # LAPACK round the batched solves differently): inlier masks equal on 99%,
 # rotations within 1e-3 rad, translation directions within 1e-2 rad; CLAHE
@@ -724,6 +728,56 @@ def klt_check(tag: str, args, kw) -> float:
     return dp
 
 
+def klt_ptxas(summary: dict) -> dict:
+    """_build.ptxas_summary rows of klt_track.cu by instantiation
+    ("<float, 3>", "<__half, 8>", ...; the plane type and the samples per
+    lane); a device function left out of line keeps its mangled name."""
+    out = {}
+    for f, v in summary.items():
+        m = re.search(r"klt_track_kernelI(f|6__half)(?:Li(\d+)E)?", f)
+        if m:
+            f = "<" + ("float" if m.group(1) == "f" else "__half") + (
+                f", {m.group(2)}>" if m.group(2) else ">")
+        out[f] = v
+    return out
+
+
+def point_steps(args, kw) -> torch.Tensor:
+    """(N,) GN steps each point takes in fb_klt_tracking_plain on these
+    inputs, over every level, chunk and the backward track."""
+    calls = []
+    klt.fb_klt_tracking_plain(*args, **kw, lk_fn=recording_lk(calls))
+    return steps_per_point(calls)
+
+
+def klt_chain(args, kw, iters=KLT_CHAIN_ITERS) -> dict:
+    """The N = 1 chain: the case's slowest point (most GN steps in the
+    plain version at the case's settings) tracked alone, one warp on the
+    card, by graph replay at each max_iters in `iters`, beside the GN
+    steps the plain version takes for it there. A least-squares line of
+    time over steps gives the per-step slope and the intercept (window
+    round trips, template set-up, the launch). Returns {"point", "us",
+    "steps", "slope_us", "intercept_us"}."""
+    i = int(point_steps(args, kw).argmax())
+    a = list(args[:2]) + [x[i:i + 1].contiguous() for x in args[2:]]
+    us, steps = [], []
+    for it in iters:
+        k = dict(kw, max_iters=it)
+        us.append(1000 * graph_ms(lambda: klt.fb_klt_tracking(*a, **k)))
+        steps.append(int(point_steps(a, k).sum()))
+    slope, intercept = (np.polyfit(steps, us, 1) if len(set(steps)) > 1
+                        else (float("nan"), float("nan")))
+    return dict(point=i, iters=list(iters), us=us, steps=steps,
+                slope_us=float(slope), intercept_us=float(intercept))
+
+
+def chain_text(c: dict) -> str:
+    return (f"max_iters {' / '.join(map(str, c['iters']))}: "
+            f"{' / '.join(f'{v:.2f}' for v in c['us'])} us, GN steps "
+            f"{' / '.join(map(str, c['steps']))}; {c['slope_us']:.4f} us per "
+            f"step, intercept {c['intercept_us']:.2f} us")
+
+
 def kernel_only_kw(args, kw) -> dict:
     """kw with gradient pyramids (made once here, as the wrapper would
     make them) where the call has none: the kernel alone."""
@@ -735,9 +789,10 @@ def kernel_only_kw(args, kw) -> dict:
 
 def phase_klt(dev, frames):
     """klt_track vs fb_klt_tracking_plain on the card on float16 and
-    float32 planes, then the timings of both plane types in turns. Returns
-    ({dtype: max |dp|}, {(pair, dtype): (ms, plain ms, bound ms, by,
-    [ms of each turn])})."""
+    float32 planes, then the timings of both plane types in turns and the
+    N = 1 chain on float16 planes. Returns ({dtype: max |dp|}, {(pair,
+    dtype): (ms, plain ms, bound ms, by, [ms of each turn])}, the chain
+    (``klt_chain``))."""
     worst = {}
     for dtype in KLT_DTYPES:
         worst[dtype] = 0.0
@@ -785,8 +840,14 @@ def phase_klt(dev, frames):
                 f"{p_ms:.3f} ms; bound {b_ms:.6f} ms by {b_by} ({nbytes} B; "
                 f"{ops} FLOP, {int(per_point.sum())} GN steps, at most "
                 f"{int(per_point.max())} for one point)")
+        if pair == "temporal":
+            dt = KLT_DTYPES[0]
+            chain = klt_chain(cases[dt][0], kernel_kw[dt])
+            log(f"[kernel klt_track] N=1 chain on {dtype_name(dt)} planes "
+                f"(point {chain['point']} of the N=192 {pair} case, alone; "
+                f"graph replay): {chain_text(chain)}")
     torch.cuda.synchronize()
-    return worst, times
+    return worst, times, chain
 
 
 def _is_scope(e) -> bool:
@@ -2385,16 +2446,20 @@ def main() -> int:
     klt._kernel_fn()
     log(f"[build] {time.perf_counter() - t0:.1f} s for both libraries (one "
         f"nvcc each, in parallel)")
+    ptxas = {}
     for name in ("lk_iterate", "klt_track"):
         log(f"[build] {name}.cu: {_build.BUILD_SECONDS.get(name, 0.0):.1f} s nvcc")
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             if "Used" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
+        ptxas[name] = _build.ptxas_summary(_build.BUILD_LOG.get(name, ""))
+    klt_build = klt_ptxas(ptxas["klt_track"])
+    log(f"[build] klt_track ptxas: {json.dumps(klt_build)}")
 
     phase_done("build")
     lk_worst, lk_times = phase_kernel(dev)
     fl, fr, _ = syn.render_sequence(n_frames=4, step=0.05)
-    klt_worst, klt_times = phase_klt(dev, (fl, fr))
+    klt_worst, klt_times, klt_chain_row = phase_klt(dev, (fl, fr))
     phase_done("kernels")
     phase_ransac(dev)
     phase_triangulation(dev)
@@ -2490,7 +2555,9 @@ def main() -> int:
          "ms": main["ms"], "plain_ms": main["plain_ms"],
          "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
          "library_ms": None, "graph_replay_launches": graph_launches,
-         "planes": planes},
+         "planes": planes, "ptxas": klt_build,
+         "chain_n1": {k: klt_chain_row[k] for k in (
+             "iters", "us", "steps", "slope_us", "intercept_us")}},
         {"name": "lk_iterate", "route": "cuda",
          "source": "ov2slam_tpu_torch/csrc/lk_iterate.cu",
          "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",

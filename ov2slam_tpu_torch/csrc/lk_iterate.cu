@@ -59,11 +59,11 @@ __global__ void lk_iterate_kernel(
   const float* src = nwin + (size_t)n * ws * ws;
   for (int i = lane; i < ws * ws; i += 32) W[i] = src[i];
 
-  float t_[lkc::kMaxSamplesPerLane], gx_[lkc::kMaxSamplesPerLane],
-      gy_[lkc::kMaxSamplesPerLane];
+  constexpr int S = lkc::kMaxSamplesPerLane;
+  float t_[S], gx_[S], gy_[S];
   const int P = win * win;
 #pragma unroll
-  for (int s = 0; s < lkc::kMaxSamplesPerLane; ++s) {
+  for (int s = 0; s < S; ++s) {
     const int idx = lane + 32 * s;
     const bool ok = idx < P;
     t_[s] = ok ? tmpl[(size_t)n * P + idx] : 0.f;
@@ -75,10 +75,10 @@ __global__ void lk_iterate_kernel(
   float px = pts[2 * n], py = pts[2 * n + 1];
   bool act = active[n] != 0;
   const bool conv_acc = lkc::gn_steps(
-      W, ws, lkc::lane_samples(win, lane), t_, gx_, gy_, gxx[n], gxy[n],
-      gyy[n], inv_det[n],
-      (float)origins[2 * n], (float)origins[2 * n + 1], ctr[2 * n],
-      ctr[2 * n + 1], n_iters, eps2, margin, px, py, act);
+      W, ws, lkc::lane_layout<S>(win, lane), (win - 1) * 0.5f, t_, gx_, gy_,
+      gxx[n], gxy[n], gyy[n], inv_det[n], (float)origins[2 * n],
+      (float)origins[2 * n + 1], ctr[2 * n], ctr[2 * n + 1], n_iters, eps2,
+      margin, px, py, act);
 
   if (lane == 0) {
     out_pts[2 * n] = px;
@@ -98,7 +98,8 @@ extern "C" int lk_iterate_launch(
     int N, int ws, int win, int n_iters, float eps, float margin,
     void* stream) {
   if (N <= 0) return 0;
-  if (win * win > 32 * lkc::kMaxSamplesPerLane) return (int)cudaErrorInvalidValue;
+  if (win * win > 32 * lkc::kMaxSamplesPerLane)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarpsPerBlock * ws * ws * sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;

@@ -97,6 +97,39 @@ def build(names: Iterable[str]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """Per function of an nvcc ``-Xptxas=-v`` log (its mangled name):
+    ``stack`` frame bytes, ``spill_stores`` and ``spill_loads`` bytes, and
+    for a kernel entry its ``registers``. A device function that ptxas did
+    not inline has an entry of its own."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+        m = _PROPS.search(line)
+        if m:
+            props = m.group(1)
+        m = _FRAME.search(line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing, then load it."""
     if name not in _LIBS:

@@ -3,7 +3,7 @@ counterpart of ``scripts/diag_tier.py``.
 
     python3 scripts/torch_diag_tier.py --tier NAME [--frames 1000]
         [--set knob=value ...] [--pyr-dtype float16|float32]
-        [--device cuda|cpu] [--out DIR]
+        [--device cuda|cpu] [--backend torch|jax] [--out DIR]
 
 It runs the first ``--frames`` frames of a tier of
 ``scripts/torch_preset_tiers.py`` (its hard sequence streamed, the loop
@@ -22,13 +22,20 @@ live error's median / p90 / max over each third of the run, the events
 landmarks) and the card's ``nvidia-smi`` name and power limit. ``--out
 DIR`` also saves the per-frame rows as ``DIR/<tier>_per_frame.npy``
 (frame, error, keyframes, landmarks, initialized). The card by default;
-``--device cpu`` runs the port on the CPU.
+``--device cpu`` runs the port on the CPU. ``--backend jax`` runs the JAX
+package instead, on the CPU, routed as ``torch_preset_tiers.py --backend
+jax`` routes it (the same frames and seed, ``--pyr-dtype`` set on its front
+end, the name its structure-only solver misses supplied by
+``tests/torch_parity.py::r1_patched``), so the two packages' per-frame
+errors compare row for row.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -43,7 +50,6 @@ FEW_3D = 60      # keyframes with fewer 3D landmarks are listed as events
 
 def main(argv=None) -> dict:
     import torch
-    import torch_bench
     import torch_preset_tiers as tiers
     from ov2slam_tpu_torch import device as device_mod
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -57,19 +63,39 @@ def main(argv=None) -> dict:
                     "storage (float16 as shipped; float32 as a witness)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
+    ap.add_argument("--backend", choices=("torch", "jax"), default="torch",
+                    help="the port, or the JAX package on the CPU")
     ap.add_argument("--out", type=Path,
                     help="save the per-frame rows as OUT/<tier>_per_frame.npy")
     args = ap.parse_args(argv)
-    dev = device_mod.resolve_device(args.device)
-    if dev.type == "cuda":
-        device_mod.set_precision_policy()
-    from ov2slam_tpu_torch.slam import frontend
-    frontend.PYR_DT = getattr(torch, args.pyr_dtype)
+    patch = contextlib.nullcontext()
+    if args.backend == "jax":
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")
+        import jax.numpy as jnp
+        import ov2slam_tpu.slam.frontend as jfrontend
+        import torch_parity
+        jfrontend.PYR_DT = getattr(jnp, args.pyr_dtype)
+        dev, patch = torch.device("cpu"), torch_parity.r1_patched()
+    else:
+        dev = device_mod.resolve_device(args.device)
+        if dev.type == "cuda":
+            device_mod.set_precision_policy()
+        from ov2slam_tpu_torch.slam import frontend
+        frontend.PYR_DT = getattr(torch, args.pyr_dtype)
     t, d, stream = tiers.with_sets(args.tier, args.set)
     frames = tiers.prefix_frames(args.tier, t, args.frames, **stream)
     detector = (tiers.LC_DETECTOR if d.get("buse_loop_closer")
                 and not (t and t.stock_lc) else None)
-    slam = tiers.make_system("torch", d, str(dev), detector)
+    with patch:
+        return run(args, dev, t, d, frames, detector)
+
+
+def run(args, dev, t, d, frames, detector) -> dict:
+    """Drive the tier frame by frame, print and return the JSON line."""
+    import torch
+    import torch_bench
+    import torch_preset_tiers as tiers
+    slam = tiers.make_system(args.backend, d, str(dev), detector)
     mono = bool(d.get("mono"))
 
     events = []
@@ -123,7 +149,8 @@ def main(argv=None) -> dict:
     out = dict(
         tool="torch_diag_tier", tier=args.tier, sets=args.set,
         pyr_dtype=args.pyr_dtype, frames=n,
-        fps=n / dt, ate=ate, backend=torch_bench.backend_name(dev),
+        fps=n / dt, ate=ate, backend=(torch_bench.backend_name(dev)
+                                      if args.backend == "torch" else "jax-cpu"),
         n_resets=sum(e["kind"] == "RESET" for e in events),
         keyframes=len(slam.map.keyframes), landmarks_3d=int(slam.map.n_3d()),
         loop_closed=slam.last_loop_event is not None,

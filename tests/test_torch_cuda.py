@@ -209,6 +209,78 @@ def test_klt_track_on_float16_planes_matches_plain_on_kitti_rig(
     _check_float16_case(args, kw)
 
 
+def _border_case(args, frames):
+    """The case's planes with 40 points 5 px inside the image's four edges,
+    their priors 2.5 px further out: the clamped windows put the first
+    steps' taps outside them."""
+    H, W = frames[0][0].shape
+    t = np.linspace(40.0, 1.0, 10)
+    xs, ys = t * (W - 80) / 40 + 20, t * (H - 80) / 40 + 20
+    pts = np.concatenate([np.stack([np.full(10, 5.0), ys], -1),
+                          np.stack([np.full(10, W - 6.0), ys], -1),
+                          np.stack([xs, np.full(10, 5.0)], -1),
+                          np.stack([xs, np.full(10, H - 6.0)], -1)])
+    out = np.sign(pts - np.array([W / 2, H / 2])) * (
+        (pts < 6) | (pts > np.array([W, H]) - 7))
+    prior = pts + 2.5 * out
+    dev = args[2].device
+    return (args[0], args[1],
+            torch.tensor(pts, dtype=torch.float32, device=dev),
+            torch.tensor(prior, dtype=torch.float32, device=dev),
+            torch.ones(len(pts), dtype=torch.bool, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("case", ["border", "win8", "win13", "n1"])
+def test_klt_track_edge_cases_match_plain(cuda, frames, case, dtype):
+    """The kernel where its staging and sampling differ most from the
+    plain version's gathers: taps outside a clamped window at the image
+    border (one level, so that the points track), an even win
+    (half-integer sample offsets), a win past 9 (the kernel's
+    8-samples-per-lane instantiation) and N = 1 (the slowest point of the
+    tracking call, one warp alone). The tolerances above; every point's
+    status equal."""
+    args, kw = klt_inputs.klt_case(frames, 192, "temporal", 1.5, cuda,
+                                   dtype=dtype)
+    need = 100
+    if case == "border":
+        args, kw, need = _border_case(args, frames), dict(kw, nlevels=0), 5
+    elif case in ("win8", "win13"):
+        kw = dict(kw, win=int(case[3:]))
+    else:
+        steps = []
+
+        def one_by_one(*a, win, n_iters, eps, margin):
+            *head, p, act = a
+            cv = torch.zeros_like(act)
+            for _ in range(n_iters):
+                if not bool(act.any()):
+                    break
+                steps.append(act.long())
+                p, act, c = lk.lk_iterate_plain(*head, p, act, win=win,
+                                                n_iters=1, eps=eps,
+                                                margin=margin)
+                cv = cv | c
+            return p, act, cv
+        klt.fb_klt_tracking_plain(*args, **kw, lk_fn=one_by_one)
+        i = int(sum(steps).argmax())
+        args, need = list(args[:2]) + [x[i:i + 1] for x in args[2:]], 1
+    before = klt.LAUNCHES
+    r = klt.fb_klt_tracking(*args, **kw)
+    rp = klt.fb_klt_tracking_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert klt.LAUNCHES == before + 1
+    s, sp = r.status.cpu().numpy(), rp.status.cpu().numpy()
+    assert sp.sum() >= need
+    assert (s == sp).mean() >= 0.99 if case[:3] == "win" else (s == sp).all()
+    both = s & sp
+    np.testing.assert_allclose(r.points.cpu().numpy()[both],
+                               rp.points.cpu().numpy()[both], atol=2e-3)
+    np.testing.assert_allclose(r.error.cpu().numpy()[both],
+                               rp.error.cpu().numpy()[both], atol=1e-3)
+
+
 @pytest.mark.cuda
 def test_klt_track_empty_and_invalid(cuda, frames):
     args, kw = klt_inputs.klt_case(frames, 192, "temporal", 1.5, cuda)
