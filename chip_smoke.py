@@ -6,12 +6,14 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (any failure raises; nothing falls back to the CPU):
 1. device: ``nvidia-smi`` name and power limit, precision policy, CUDA check;
-2. build: compile ``csrc/lk_iterate.cu`` and ``csrc/klt_track.cu`` with one
-   nvcc each, started together, and print ptxas' registers, shared memory
-   and spills;
+2. build: compile ``csrc/lk_iterate.cu``, ``csrc/klt_track.cu`` and the
+   empty kernel ``csrc/launch_floor.cu`` with one nvcc each, started
+   together, and print ptxas' registers, shared memory and spills;
 3. kernel lk_iterate: the per-chunk LK loop against its plain PyTorch
    version on the card, on seeded inputs at the slice's shapes; device time
-   by CUDA-graph replay;
+   by CUDA-graph replay; its N = 1 chain (the slowest point alone over
+   ``n_iters`` 1 / 10 / 30: the slope per GN step and the intercept) beside
+   the launch floor (the empty kernel by graph replay);
 4. kernel klt_track: the fused forward-backward KLT against
    ``fb_klt_tracking_plain`` on the card, on two rendered 752x480 frames at
    N = 192 and 320 (temporal pair with prior jitter 0 and 1.5 px; stereo
@@ -214,6 +216,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import functools
 import inspect
 import json
@@ -276,6 +279,8 @@ HBM_BPS, F32_FLOPS, FLOPS_PER_SAMPLE = 3.35e12, 67e12, 30
 # the N = 1 chain of klt_track (one warp alone: its latency) at these
 # iteration budgets
 KLT_CHAIN_ITERS = (1, 10, 30)
+# lk_iterate's N = 1 chain at these n_iters
+LK_CHAIN_ITERS = (1, 10, 30)
 # RANSAC and CLAHE on the card vs the CPU (plain PyTorch both; cuSOLVER and
 # LAPACK round the batched solves differently): inlier masks equal on 99%,
 # rotations within 1e-3 rad, translation directions within 1e-2 rad; CLAHE
@@ -586,45 +591,119 @@ def lk_bound(args, kw):
     return bound(nbytes, ops) + (nbytes, ops, calls)
 
 
+def lk_check(tag: str, args, kw) -> float:
+    """lk_iterate against lk_iterate_plain on the same inputs: points that
+    stopped alike to PTS_TOL, every point to EPS, the active and converged
+    masks equal on MASK_AGREE of the points; returns max |dp|."""
+    pk, ak, ck = lk.lk_iterate(*args, **kw)
+    pp, ap, cp = lk.lk_iterate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = (ck == cp) & (ak == ap) & ~(ak & ap)
+    err = (pk - pp).abs().amax(-1)
+    err_same = float(err[same].max()) if bool(same.any()) else 0.0
+    err_all = float(err.max())
+    a_agree = float((ak == ap).float().mean())
+    c_agree = float((ck == cp).float().mean())
+    log(f"{tag}: max |dp| {err_all:.3g} px (stopped alike {err_same:.3g}), "
+        f"active agree {a_agree:.4f}, converged agree {c_agree:.4f}")
+    if err_same > PTS_TOL or err_all > EPS or min(a_agree, c_agree) < MASK_AGREE:
+        raise AssertionError(
+            f"{tag}: point error {err_same:.3g} px (stopped alike, tol "
+            f"{PTS_TOL}), {err_all:.3g} px (all, tol {EPS}); mask agreement "
+            f"active {a_agree:.4f} converged {c_agree:.4f} (need {MASK_AGREE})")
+    return err_all
+
+
+def lk_point_steps(args, kw) -> torch.Tensor:
+    """(N,) GN steps each point takes in lk_iterate_plain on these inputs."""
+    calls = []
+    recording_lk(calls)(*args, **kw)
+    return steps_per_point(calls)
+
+
+def lk_chain(args, iters=LK_CHAIN_ITERS) -> dict:
+    """lk_iterate's N = 1 chain: the point of `args` that takes the most GN
+    steps in the plain version at n_iters = max(iters), alone (one warp on
+    the card), by graph replay at each n_iters in `iters`, beside the GN
+    steps the plain version takes for it there; the least-squares line of
+    time over steps gives the per-step slope and the intercept (the launch,
+    the window and template loads). Returns the keys of ``klt_chain``."""
+    kw = dict(win=WIN, eps=EPS, margin=MARGIN)
+    i = int(lk_point_steps(args, dict(kw, n_iters=max(iters))).argmax())
+    a = [x[i:i + 1].contiguous() for x in args]
+    us, steps = [], []
+    for it in iters:
+        k = dict(kw, n_iters=it)
+        us.append(1000 * graph_ms(lambda: lk.lk_iterate(*a, **k)))
+        steps.append(int(lk_point_steps(a, k).sum()))
+    slope, intercept = (np.polyfit(steps, us, 1) if len(set(steps)) > 1
+                        else (float("nan"), float("nan")))
+    return dict(point=i, iters=list(iters), us=us, steps=steps,
+                slope_us=float(slope), intercept_us=float(intercept))
+
+
+def launch_floor_us(blocks: int, threads: int) -> float:
+    """Device time per launch of csrc/launch_floor.cu's empty kernel at
+    this grid, by graph replay as ``graph_ms`` times a kernel."""
+    fn = _build.load("launch_floor").launch_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+    return 1000 * graph_ms(launch)
+
+
+def lk_ptxas(summary: dict) -> dict:
+    """_build.ptxas_summary rows of lk_iterate.cu by instantiation ("<3>",
+    "<8>": the samples per lane; "lk_iterate_kernel" where the kernel is no
+    template); raises when no kernel entry is there."""
+    out = {}
+    for f, v in summary.items():
+        m = re.search(r"lk_iterate_kernel(?:ILi(\d+)E)?", f)
+        if m:
+            f = f"<{m.group(1)}>" if m.group(1) else "lk_iterate_kernel"
+        out[f] = v
+    if not any("registers" in v for v in out.values()):
+        raise AssertionError(f"lk_iterate.cu: no kernel in ptxas' log: "
+                             f"{sorted(summary)}")
+    return out
+
+
 def phase_kernel(dev):
-    """lk_iterate vs plain at N in {192, 320} and n_iters in {1, 10, 30}."""
+    """lk_iterate vs plain at N in {192, 320} and n_iters in {1, 10, 30},
+    each call's device time beside its bound; then the N = 1 chain and the
+    launch floor."""
     worst = 0.0
     times = {}
     for N in (192, 320):
         args = lk_case(N, seed=N, dev=dev)
         for n_iters in (1, 10, 30):
             kw = dict(win=WIN, n_iters=n_iters, eps=EPS, margin=MARGIN)
-            pk, ak, ck = lk.lk_iterate(*args, **kw)
-            pp, ap, cp = lk.lk_iterate_plain(*args, **kw)
-            torch.cuda.synchronize()
-            same = (ck == cp) & (ak == ap) & ~(ak & ap)
-            err = (pk - pp).abs().amax(-1)
-            err_same = float(err[same].max()) if bool(same.any()) else 0.0
-            err_all = float(err.max())
-            a_agree = float((ak == ap).float().mean())
-            c_agree = float((ck == cp).float().mean())
-            if err_same > PTS_TOL or err_all > EPS or min(a_agree, c_agree) < MASK_AGREE:
-                raise AssertionError(
-                    f"lk_iterate N={N} n_iters={n_iters}: point error "
-                    f"{err_same:.3g} px (stopped alike, tol {PTS_TOL}), "
-                    f"{err_all:.3g} px (all, tol {EPS}); mask agreement "
-                    f"active {a_agree:.4f} converged {c_agree:.4f} "
-                    f"(need {MASK_AGREE})")
-            worst = max(worst, err_all)
+            worst = max(worst, lk_check(
+                f"[kernel lk_iterate] N={N} n_iters={n_iters}", args, kw))
             k_ms = graph_ms(lambda: lk.lk_iterate(*args, **kw))
             p_ms = cuda_ms(lambda: lk.lk_iterate_plain(*args, **kw), 20)
             b_ms, b_by, nbytes, ops, calls = lk_bound(args, kw)
             per_point = steps_per_point(calls)
             times[(N, n_iters)] = (k_ms, p_ms, b_ms, b_by)
-            log(f"[kernel lk_iterate] N={N} n_iters={n_iters}: max |dp| "
-                f"{err_all:.3g} px (stopped alike {err_same:.3g}), active "
-                f"agree {a_agree:.4f}, converged agree {c_agree:.4f}; device "
+            log(f"[kernel lk_iterate] N={N} n_iters={n_iters}: device "
                 f"{k_ms:.5f} ms (graph replay), plain {p_ms:.4f} ms; bound "
                 f"{b_ms:.6f} ms by {b_by} ({nbytes} B; {ops} FLOP, "
                 f"{int(per_point.sum())} GN steps, at most "
                 f"{int(per_point.max())} for one point)")
+    chain = lk_chain(lk_case(192, seed=192, dev=dev))
+    floor = {"1x32": launch_floor_us(1, 32),
+             "48x128": launch_floor_us(48, 128)}
+    log(f"[kernel lk_iterate] N=1 chain (point {chain['point']} of the "
+        f"N=192 seed-192 case, alone; graph replay): "
+        f"{chain_text(chain, 'n_iters')}; launch floor (an empty kernel by "
+        f"graph replay) {floor['1x32']:.2f} us at 1 block of 32 threads, "
+        f"{floor['48x128']:.2f} us at 48 blocks of 128")
     torch.cuda.synchronize()
-    return worst, times
+    return worst, times, dict(chain, launch_floor_us=floor)
 
 
 def klt_window_origins(q, shape, ws: int):
@@ -771,8 +850,8 @@ def klt_chain(args, kw, iters=KLT_CHAIN_ITERS) -> dict:
                 slope_us=float(slope), intercept_us=float(intercept))
 
 
-def chain_text(c: dict) -> str:
-    return (f"max_iters {' / '.join(map(str, c['iters']))}: "
+def chain_text(c: dict, budget: str = "max_iters") -> str:
+    return (f"{budget} {' / '.join(map(str, c['iters']))}: "
             f"{' / '.join(f'{v:.2f}' for v in c['us'])} us, GN steps "
             f"{' / '.join(map(str, c['steps']))}; {c['slope_us']:.4f} us per "
             f"step, intercept {c['intercept_us']:.2f} us")
@@ -2441,11 +2520,11 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build(["lk_iterate", "klt_track"])
+    _build.build(["lk_iterate", "klt_track", "launch_floor"])
     lk._kernel_fn()
     klt._kernel_fn()
-    log(f"[build] {time.perf_counter() - t0:.1f} s for both libraries (one "
-        f"nvcc each, in parallel)")
+    log(f"[build] {time.perf_counter() - t0:.1f} s for the three libraries "
+        f"(one nvcc each, in parallel)")
     ptxas = {}
     for name in ("lk_iterate", "klt_track"):
         log(f"[build] {name}.cu: {_build.BUILD_SECONDS.get(name, 0.0):.1f} s nvcc")
@@ -2454,10 +2533,12 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
         ptxas[name] = _build.ptxas_summary(_build.BUILD_LOG.get(name, ""))
     klt_build = klt_ptxas(ptxas["klt_track"])
+    lk_build = lk_ptxas(ptxas["lk_iterate"])
     log(f"[build] klt_track ptxas: {json.dumps(klt_build)}")
+    log(f"[build] lk_iterate ptxas: {json.dumps(lk_build)}")
 
     phase_done("build")
-    lk_worst, lk_times = phase_kernel(dev)
+    lk_worst, lk_times, lk_chain_row = phase_kernel(dev)
     fl, fr, _ = syn.render_sequence(n_frames=4, step=0.05)
     klt_worst, klt_times, klt_chain_row = phase_klt(dev, (fl, fr))
     phase_done("kernels")
@@ -2563,7 +2644,10 @@ def main() -> int:
          "replaces": "ov2slam_tpu/ops/pallas_lk.py:175",
          "launches": launches["lk_iterate"], "max_abs_err": lk_worst,
          "ms": lk_ms, "plain_ms": lp_ms, "bound_ms": lb_ms, "bound_by": lb_by,
-         "library_ms": None}]}))
+         "library_ms": None, "ptxas": lk_build,
+         "chain_n1": {k: lk_chain_row[k] for k in (
+             "iters", "us", "steps", "slope_us", "intercept_us",
+             "launch_floor_us")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,7 +33,8 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}
-BUILD_LOG: Dict[str, str] = {}      # nvcc/ptxas output (registers, smem)
+# nvcc/ptxas output (registers, smem), kept beside each library
+BUILD_LOG: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -76,6 +77,9 @@ def build(names: Iterable[str]) -> None:
     for name in names:
         src, lib = library_path(name)
         if lib.exists():
+            log = lib.with_suffix(".log")
+            if log.exists():
+                BUILD_LOG.setdefault(name, log.read_text())
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -90,6 +94,7 @@ def build(names: Iterable[str]) -> None:
             failed.append(f"nvcc failed on {src.name} (exit "
                           f"{proc.returncode}):\n{out}")
             continue
+        lib.with_suffix(".log").write_text(out.strip())
         os.replace(tmp, lib)
         BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = out.strip()

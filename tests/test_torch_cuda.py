@@ -47,30 +47,34 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _lk_inputs(N, seed):
-    """Seeded LK inputs at the slice's window shapes (ws=20, win=9)."""
+def _lk_inputs(N, seed, win=WIN, shift=0):
+    """Seeded LK inputs at the slice's window shapes (ws=20, win=9), or at
+    another win (ws = win + 11). With `shift`, each window's origin moves
+    up and left by that many pixels, so that the point starts that far
+    past the window's centre (ctr)."""
+    ws = win + 11
     rng = np.random.default_rng(seed)
     H, W = 240, 320
     img0 = im.gaussian_blur(torch.from_numpy(
         rng.uniform(0, 255, (H, W)).astype(np.float32)), 1.5)
     img1 = torch.roll(img0, shifts=(1, 2), dims=(0, 1)) + torch.from_numpy(
         rng.normal(0, 1.0, (H, W)).astype(np.float32))
-    pts = torch.from_numpy(np.stack([rng.uniform(WS, W - WS, N),
-                                     rng.uniform(WS, H - WS, N)], -1)
+    pts = torch.from_numpy(np.stack([rng.uniform(ws, W - ws, N),
+                                     rng.uniform(ws, H - ws, N)], -1)
                            .astype(np.float32))
     gx_img, gy_img = im.scharr_gradients(img0)
-    o = torch.clamp(torch.round(pts).int() - WS // 2, min=0)
-    ar = torch.arange(WS)
+    o = torch.clamp(torch.round(pts).int() - ws // 2 - shift, min=0)
+    ar = torch.arange(ws)
     rows = (o[:, 1].long()[:, None] + ar)[:, :, None]
     cols = (o[:, 0].long()[:, None] + ar)[:, None, :]
     tmpl, gx, gy = lk.sample_in_windows(
         torch.stack([img0[rows, cols], gx_img[rows, cols], gy_img[rows, cols]]),
-        pts - o.float(), WIN)
+        pts - o.float(), win)
     gxx, gxy, gyy = (gx * gx).sum(-1), (gx * gy).sum(-1), (gy * gy).sum(-1)
     det = gxx * gyy - gxy * gxy
     inv_det = torch.where(det.abs() > 1e-12, 1.0 / det, torch.zeros_like(det))
     return [img1[rows, cols], tmpl, gx, gy, gxx, gxy, gyy, inv_det, o,
-            o.float() + WS // 2, pts, torch.ones(N, dtype=torch.bool)]
+            o.float() + ws // 2, pts, torch.ones(N, dtype=torch.bool)]
 
 
 def _assert_lk_close(p, a, c, pr, ar_, cr, atol=2e-3, agree=0.99):
@@ -83,12 +87,21 @@ def _assert_lk_close(p, a, c, pr, ar_, cr, atol=2e-3, agree=0.99):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [192, 320])
-def test_kernel_matches_plain_on_card(cuda, N):
-    args = [x.contiguous().to(cuda) for x in _lk_inputs(N, seed=N)]
+@pytest.mark.parametrize("N,win,shift", [
+    pytest.param(192, WIN, 0, id="192"), pytest.param(320, WIN, 0, id="320"),
+    pytest.param(1, WIN, 0, id="1"),
+    # ws 19: the window's 4-byte staging path
+    pytest.param(192, 8, 0, id="win8"),
+    # 8 samples per lane
+    pytest.param(192, 16, 0, id="win16"),
+    # points at the margin: the refresh's block reaches past the window
+    pytest.param(192, WIN, int(MARGIN), id="border")])
+def test_kernel_matches_plain_on_card(cuda, N, win, shift):
+    args = [x.contiguous().to(cuda)
+            for x in _lk_inputs(N, seed=N, win=win, shift=shift)]
     before = lk.LAUNCHES
     for n_iters in (1, 10, 30):
-        kw = dict(win=WIN, n_iters=n_iters, eps=EPS, margin=MARGIN)
+        kw = dict(win=win, n_iters=n_iters, eps=EPS, margin=MARGIN)
         out = lk.lk_iterate(*args, **kw)
         ref = lk.lk_iterate_plain(*args, **kw)
         torch.cuda.synchronize()

@@ -1,9 +1,10 @@
-"""The arithmetic of the cell-block Gauss-Newton step measured for
-``csrc/klt_track.cu`` (``PERF.md`` §6 has its numbers; the kernel keeps the
-per-sample step, because the cell-block one's last-bit changes moved a
-smoke gate), emulated in numpy float32, against the per-sample step of
-``lk.lk_iterate_plain`` (the JAX package's XLA loop) on windows cut from
-``tests/klt_inputs.py`` frames.
+"""The arithmetic of the cell-block Gauss-Newton step, emulated in numpy
+float32, against the per-sample step of ``lk.lk_iterate_plain`` (the JAX
+package's XLA loop): on windows cut from ``tests/klt_inputs.py`` frames,
+where it was measured for ``csrc/klt_track.cu`` (``PERF.md`` §6; that
+kernel keeps the per-sample step, because the cell-block one's last-bit
+changes moved a smoke gate), and on the card tests' seeded windows of
+``csrc/lk_iterate.cu``, which runs it.
 
 All win x win samples of a patch sit at integer offsets from its top-left
 tap (half-integer from its centre for an even win), so they share one
@@ -15,7 +16,8 @@ fractional part (fx, fy) and four bilinear weights w_jk that sum to 1, and
 A refresh computes C^x and C^y at the 4x4 integer shifts around the
 point's cell, which cover its 3x3 block of cells; a step whose cell lies
 in the block blends four of them; a step that leaves it refreshes first,
-and every call (a new window) starts with a refresh. The steps must agree
+and every call (a new window) starts with a refresh: ``lk_iterate.cu``'s
+policy. The steps must agree
 with the per-sample ones to 1e-5 px, with equal active and converged
 masks after every step and equal step counts.
 """
@@ -28,6 +30,10 @@ import klt_inputs
 import synthetic_np as syn
 import torch_parity  # noqa: F401  (caps torch's CPU threads)
 from ov2slam_tpu_torch.ops import klt, lk
+from test_torch_cuda import EPS as LK_EPS
+from test_torch_cuda import MARGIN as LK_MARGIN
+from test_torch_cuda import WIN as LK_WIN
+from test_torch_cuda import _lk_inputs
 
 PTS_TOL = 1e-5
 N_POINTS = 32
@@ -213,9 +219,16 @@ def oscillating_point(calls):
     return best
 
 
-@pytest.mark.parametrize("case", ["win9", "win8", "border", "oscillating"])
+@pytest.mark.parametrize("case", ["win9", "win8", "border", "oscillating",
+                                  "lk_iterate"])
 def test_cell_block_step_matches_per_sample_step(case):
-    if case in ("win9", "win8"):
+    if case == "lk_iterate":
+        # csrc/lk_iterate.cu's own inputs: the card tests' seeded windows
+        args = _lk_inputs(64, seed=64)
+        kw = dict(win=LK_WIN, n_iters=30, eps=LK_EPS, margin=LK_MARGIN)
+        refreshes, steps, _ = compare([(args, kw)])
+        assert steps > 150 and refreshes < 0.6 * steps, (refreshes, steps)
+    elif case in ("win9", "win8"):
         calls = captured_calls(win=9 if case == "win9" else 8)
         refreshes, steps, _ = compare(calls)
         # the block saves most patch samplings
