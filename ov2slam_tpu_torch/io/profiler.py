@@ -23,15 +23,45 @@ epipolar gate's read); ``1.BA_localBA`` (the synchronous solve's stop test,
 ``1.BA_MapFiltering``, ``2.KF_LMM_merge`` and ``2.LC_MergeBookkeeping``
 are host-only bookkeeping. ``2.KF_DeviceStep``, ``2.KF_LMM_dispatch`` and
 ``1.BA_begin`` issue device work and wait only behind their uploads.
+
+Finer spans name what the host does at each boundary of the port's work,
+by kind: *work* (host computation), *issue* (enqueues device work) or
+*wait* (the host blocks on the card). The chunk call
+(``SlamSystem.process_stereo_chunk``): ``0.FE_prepare`` (work + issue: the
+frames' rectification and uploads, the landmark arena),
+``0.FE_capture`` (work: a graph key's warm-up and captures),
+``0.FE_load`` (issue: the state into the graphs' buffers),
+``0.FE_graph_front`` / ``_filter`` / ``_back`` (issue: one replay each),
+``0.FE_gate_read`` (wait: the parallax gate), ``0.FE_stats_read`` (wait:
+the chunk's stats) and ``0.FE_finalize`` (work: poses, keyframe decisions,
+the log; ``1.KF_Processing`` inside). The keyframe path: ``2.KF_Anchors``
+(work: candidate ids and anchor data), ``1.BA_build`` (work: the problem
+from the host map), ``1.BA_solve`` (issue, with the solver's stop-test
+reads), ``1.BA_fetch`` (wait: the result's reads) and ``1.BA_writeback``
+(work). ``9.Host_GC`` (work) is each garbage collection while the process-wide
+profiler (``Profiler.instance()``) is enabled: one ``gc.callbacks`` hook,
+which updates a table entry made when timing is turned on and on
+``reset()``, so that a collection never adds a key to ``timers`` while a
+reader walks it. ``sample`` adds a count to a label's
+statistics instead of a time: ``1.BA_nobs``, the observations of each
+built BA problem.
+
+Disabled, ``scope`` returns one shared no-op context: no clock read, no
+table entry and no ``record_function``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 from torch.profiler import record_function
+
+GC_LABEL = "9.Host_GC"
+_NO_SCOPE = contextlib.nullcontext()
 
 
 @dataclass
@@ -63,13 +93,38 @@ class Profiler:
     _instance: Optional["Profiler"] = None
 
     def __init__(self, enabled: bool = True):
-        self.enabled = enabled
         self.timers: Dict[str, _TimerStats] = {}
+        self._gc_span = None
+        self.enabled = enabled
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    @enabled.setter
+    def enabled(self, on) -> None:
+        """Turn timing on or off. For the process-wide profiler, on also
+        times each garbage collection as ``GC_LABEL``; off removes the hook
+        again, and the label's entry if no collection was timed."""
+        self._enabled = bool(on)
+        if self is not Profiler._instance:
+            return
+        if self._enabled:
+            self.timers.setdefault(GC_LABEL, _TimerStats())
+            if _gc_hook not in gc.callbacks:
+                gc.callbacks.append(_gc_hook)
+        else:
+            if _gc_hook in gc.callbacks:
+                gc.callbacks.remove(_gc_hook)
+            st = self.timers.get(GC_LABEL)
+            if st is not None and st.n == 0:
+                del self.timers[GC_LABEL]
 
     @classmethod
     def instance(cls) -> "Profiler":
         if cls._instance is None:
-            cls._instance = Profiler()
+            cls._instance = Profiler(enabled=False)
+            cls._instance.enabled = True
         return cls._instance
 
     def start(self, label: str):
@@ -114,14 +169,39 @@ class Profiler:
             self.trace.__exit__(*a)
             self.prof.stop(self.label)
 
-    def scope(self, label: str) -> "_Scope":
+    def scope(self, label: str):
+        if not self._enabled:
+            return _NO_SCOPE
         return Profiler._Scope(self, label)
+
+    def sample(self, label: str, value: float):
+        """Add `value` (a count, not a time) to the label's statistics."""
+        if self._enabled:
+            self.timers.setdefault(label, _TimerStats()).add(float(value))
+
+    def _on_gc(self, phase: str):
+        # updates the entry the setter or reset() made; adds no key
+        st = self.timers.get(GC_LABEL)
+        if st is None:
+            return
+        if phase == "start":
+            st.t_start = time.perf_counter()
+            self._gc_span = record_function(GC_LABEL)
+            self._gc_span.__enter__()
+        elif self._gc_span is not None:
+            span, self._gc_span = self._gc_span, None
+            span.__exit__(None, None, None)
+            if st.t_start is not None:
+                st.add((time.perf_counter() - st.t_start) * 1000.0)
+                st.t_start = None
 
     def summary(self) -> str:
         lines = ["=" * 72,
                  f"{'label':<40}{'mean':>8}{'std':>8}{'min':>8}{'max':>8}"]
         for label in sorted(self.timers):
             st = self.timers[label]
+            if label == GC_LABEL and st.n == 0:
+                continue            # made ready, no collection timed
             lines.append(
                 f"{label:<40}{st.mean:>8.2f}{st.std:>8.2f}"
                 f"{st.vmin:>8.2f}{st.vmax:>8.2f}")
@@ -129,4 +209,15 @@ class Profiler:
         return "\n".join(lines)
 
     def reset(self):
+        st = _TimerStats()
         self.timers.clear()
+        if self._enabled and self is Profiler._instance:
+            self.timers[GC_LABEL] = st
+
+
+def _gc_hook(phase, info):
+    """The ``gc.callbacks`` entry: times each collection in the
+    process-wide profiler while it is enabled."""
+    prof = Profiler._instance
+    if prof is not None and prof._enabled:
+        prof._on_gc(phase)

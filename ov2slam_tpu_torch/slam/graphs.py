@@ -41,7 +41,11 @@ What a replay needs, and how it gets it:
 Graphs are captured once per key (image shape, landmark capacity, keypoint
 capacity, camera, step flags, keyframe templates or not, the generator)
 and reused across chunks. A capture or replay that fails raises: nothing
-falls back to the eager step on the card.
+falls back to the eager step on the card. With the system's timers on
+(``io/profiler.py``), a key's warm-up and captures are the span
+``0.FE_capture``, each ``load`` ``0.FE_load``, each replay
+``0.FE_graph_front`` / ``_filter`` / ``_back`` and each gate read
+``0.FE_gate_read``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ov2slam_tpu_torch.io.profiler import Profiler
 from ov2slam_tpu_torch.ops import klt as klt_mod
 from ov2slam_tpu_torch.slam import frontend as fe
 from ov2slam_tpu_torch.slam.frame import FrameKps
@@ -110,6 +115,7 @@ class FrameGraphs:
         self.epipolar = bool(kw.get("do_epipolar"))
         self.nodes: Dict[str, int] = {}     # klt_track launches per graph
         self.replays: Dict[str, int] = {}
+        self.prof = Profiler.instance()
         t0 = time.perf_counter()
         self._warm_up()
         self._capture()
@@ -189,22 +195,29 @@ class FrameGraphs:
     def load(self, state: fe.FEState, lm_pos: torch.Tensor,
              lm_is3d: torch.Tensor):
         """Copy the manager's state and landmark arena into the buffers."""
-        names = _STEPPED + ("R_kf",) + (_KF if self.use_kf else ())
-        _copy_into(_fields(self.state, names), _fields(state, names))
-        self.lm_pos.copy_(lm_pos)
-        self.lm_is3d.copy_(lm_is3d)
+        with self.prof.scope("0.FE_load"):
+            names = _STEPPED + ("R_kf",) + (_KF if self.use_kf else ())
+            _copy_into(_fields(self.state, names), _fields(state, names))
+            self.lm_pos.copy_(lm_pos)
+            self.lm_is3d.copy_(lm_is3d)
 
     def step(self, img: torch.Tensor) -> torch.Tensor:
         """One frame from the buffers' state: its (12,) stats (a buffer the
         next step rewrites); the state advances in place."""
+        prof = self.prof
         self.img.copy_(img)
         if self.g_front is not None:
-            self.g_front.replay()
+            with prof.scope("0.FE_graph_front"):
+                self.g_front.replay()
             self._count("front")
-            if fe.gate_open(self.front.tracked.gate):
-                self.g_filter.replay()
+            with prof.scope("0.FE_gate_read"):
+                gate = fe.gate_open(self.front.tracked.gate)
+            if gate:
+                with prof.scope("0.FE_graph_filter"):
+                    self.g_filter.replay()
                 self._count("filter")
-        self.g_back.replay()
+        with prof.scope("0.FE_graph_back"):
+            self.g_back.replay()
         self._count("back")
         return self.stats
 
@@ -244,8 +257,9 @@ class StepGraphs:
         use_kf = bool(kw.get("track_from_kf")) and state.kf_pyr is not None
         k = self.key(state, img, lm_pos, cam, kw, use_kf)
         if k not in self.graphs:
-            self.graphs[k] = FrameGraphs(state, img, lm_pos, lm_is3d, cam, kw,
-                                         use_kf)
+            with Profiler.instance().scope("0.FE_capture"):
+                self.graphs[k] = FrameGraphs(state, img, lm_pos, lm_is3d, cam,
+                                             kw, use_kf)
         self.last = self.graphs[k]
         return self.last
 

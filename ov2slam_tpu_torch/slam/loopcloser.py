@@ -25,7 +25,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ov2slam_tpu_torch.core.camera import Camera
 from ov2slam_tpu_torch.core.lie import SE3
@@ -294,7 +293,7 @@ class LoopCloser:
         # (Optimizer::structureOnlyBA, optimizer.cpp:2594-2782;
         # loop_closer.cpp:353)
         if self.estimator is not None and n_merged > 0:
-            with record_function("1.BA_structureOnly"):
+            with Profiler.instance().scope("1.BA_structureOnly"):
                 self.estimator.local_ba_with_caps(
                     m, kfid, max_kfs=24, max_lms=4096, max_obs=16384,
                     max_iters=3, structure_only=True,
@@ -307,7 +306,7 @@ class LoopCloser:
         if self.estimator is not None and jump >= LOOSE_BA_MIN_JUMP:
             span = sorted(k for k in m.keyframes if match_kf <= k <= kfid)
             if len(span) >= 3:
-                with record_function("1.BA_looseBA"):
+                with Profiler.instance().scope("1.BA_looseBA"):
                     self.estimator.span_ba(
                         m, span, max_iters=6,
                         time_budget_s=p.lc_loose_ba_time_s or None)

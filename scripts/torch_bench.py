@@ -34,21 +34,15 @@ graph's warm-up and capture too, and by the frame step's graph replays).
 The accounting, ``bench.py``'s ``perf_accounting`` on the card, after the
 timed passes on the last pass's state (CUDA events; bench.py's XLA cost
 analysis and TPU peaks have no counterpart here;
-``scripts/torch_profile_frame.py`` splits the real frames instead of a
-chain):
+``scripts/torch_profile_frame.py`` times the frame step's stages on each
+real frame):
 
-* ``frame_step_device_ms``: ``frontend.frame_step`` as the CUDA graphs of
-  ``slam/graphs.py``, replayed over the sequence's last four frames in a
-  chain (the parallax gate read between the graphs included;
-  ``frame_step_gate_open_share``: the share of steps whose gate opened, so
-  that the epipolar filter's 5-point RANSAC ran), and beside it
-  ``frame_step_eager_ms``, the same chain of eager steps;
+* ``frame_step_eager_ms``: ``frontend.frame_step`` run eagerly from the
+  system's state over the sequence's last four frames in turn;
 * ``per_stage_ms``: ``preprocess_grads`` (pyramid and Scharr gradients of
-  one frame, stored float16, one graph), ``fb_klt`` (one ``klt_track``
+  one frame, stored float16, one graph) and ``fb_klt`` (one ``klt_track``
   launch on float16 planes by graph replay: the state's keypoints tracked
-  from the last frame into the one before it) and ``pnp_ransac_other``
-  (the rest of the frame step);
-* ``device_fps_upper_bound`` (1000 / frame_step_device_ms);
+  from the last frame into the one before it);
 * ``klt_bound_ms`` and ``klt_bound_share``: ``chip_smoke.klt_bound``'s
   least time for that call (its bytes over 3.35 TB/s or its operations
   over 67 TFLOP/s, the larger) and the bound over the measured time;
@@ -137,12 +131,10 @@ def profiled_pass(params, dev, fl, fr, chunk: int) -> dict:
     return out
 
 
-def chained_ms(slam, fl) -> dict:
-    """The frame step from the system's state chained over the sequence's
-    last four frames (back three frames every fourth step):
-    ``frame_step_device_ms`` (graph replays, CUDA events), its
-    ``frame_step_gate_open_share`` and ``frame_step_eager_ms``; on the CPU
-    only the last, by host clock."""
+def eager_step_ms(slam, fl) -> float:
+    """``frontend.frame_step`` run eagerly from the system's state over the
+    sequence's last four frames in turn, ms per step (CUDA events on the
+    card, the host clock on the CPU)."""
     from ov2slam_tpu_torch.slam import frontend as fe
     state, kw = slam.fe_state, slam._step_kwargs()
     lm = slam.map.device_landmarks()
@@ -160,27 +152,16 @@ def chained_ms(slam, fl) -> dict:
         t0 = time.perf_counter()
         for _ in range(reps):
             eager()
-        return dict(frame_step_eager_ms=1e3 * (time.perf_counter() - t0) / reps)
+        return 1e3 * (time.perf_counter() - t0) / reps
     import chip_smoke as cs
-    from ov2slam_tpu_torch.slam import graphs
-    g = graphs.FrameGraphs(state, imgs[0], *lm, slam.cam_l, kw, use_kf=False)
-
-    def replay():
-        k["i"] += 1
-        return g.step(imgs[k["i"] % 4])
-
-    ms_frame = cs.cuda_ms(replay, REPS)
-    return dict(frame_step_device_ms=ms_frame,
-                frame_step_gate_open_share=(g.replays.get("filter", 0)
-                                            / g.replays["back"]),
-                frame_step_eager_ms=cs.cuda_ms(eager, REPS // 5))
+    return cs.cuda_ms(eager, REPS // 5)
 
 
 def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
     """bench.py's perf_accounting for the port (see the module docstring)."""
     from ov2slam_tpu_torch.slam import frontend as fe
     kw = slam._step_kwargs()
-    out = chained_ms(slam, fl)
+    out = dict(frame_step_eager_ms=eager_step_ms(slam, fl))
     if dev.type != "cuda":
         out["profiler_mean_ms"] = profiled_pass(params, dev, fl, fr, chunk)
         return out
@@ -188,7 +169,6 @@ def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
     import chip_smoke as cs
     from ov2slam_tpu_torch.ops import klt
     imgs = [slam._to_device_u8(f) for f in fl[-4:]]
-    ms_frame = out["frame_step_device_ms"]
     levels, uc, cc = kw["levels"], kw["use_clahe"], kw["clahe_clip"]
     ms_pre = cs.graph_ms(lambda: fe.stored_pyramids(imgs[0], levels, uc, cc),
                          REPS)
@@ -204,11 +184,7 @@ def accounting(slam, params, dev, fl, fr, chunk: int) -> dict:
     ms_klt = cs.graph_ms(lambda: klt.fb_klt_tracking(*args, **kkw), REPS)
     b_ms, b_by, nbytes, ops, _ = cs.klt_bound(args, kkw)
     out.update(
-        per_stage_ms={
-            "preprocess_grads": ms_pre,
-            "fb_klt": ms_klt,
-            "pnp_ransac_other": max(ms_frame - ms_klt - ms_pre, 0.0)},
-        device_fps_upper_bound=1e3 / ms_frame,
+        per_stage_ms={"preprocess_grads": ms_pre, "fb_klt": ms_klt},
         klt_points=int(st.kps.valid.sum()),
         klt_bound_ms=b_ms, klt_bound_by=b_by, klt_bound_bytes=nbytes,
         klt_bound_share=b_ms / ms_klt,

@@ -33,10 +33,8 @@ by CUDA events around it (the host issues its work, so that is its wall
 time). On the CPU every stage runs eagerly by host clock. The JSON line
 holds the mean per real frame of each stage (``essential_ransac`` counts 0
 on a frame whose gate stayed shut), the gate-open share, the RANSAC's mean
-over the frames whose gate opened, the card's ``nvidia-smi`` name and power
-limit, and on the card, for comparison in the same run,
-``scripts/torch_bench.py``'s chained accounting (``frame_step_device_ms``:
-the step replayed over the last four frames in a chain).
+over the frames whose gate opened, and the card's ``nvidia-smi`` name and
+power limit.
 ``scripts/profile_frame.py``'s XLA cost analysis has no counterpart here:
 ``chip_smoke.klt_bound`` gives the KLT's bytes and operations.
 """
@@ -277,8 +275,6 @@ def main(argv=None, frames=None) -> dict:
                       if dev.type == "cuda" else "host clock, eager"),
                run_s=run_s, profile_s=time.perf_counter() - t0,
                **summarize(rows))
-    if dev.type == "cuda":
-        out["chained"] = torch_bench.chained_ms(slam, fl)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
